@@ -1,0 +1,463 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's main path once on one GPU and check it.
+
+    python3 chip_smoke.py [--seed 0] [--steps 64] [--out report.json]
+
+From the root of a checkout, on a machine with an NVIDIA Hopper card and
+the CUDA toolkit:
+
+1. builds the three hand-written kernels from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` (one process per source, all at once);
+2. calls each kernel's wrapper at the shapes the main path gives it and
+   holds the result against its plain PyTorch version on the same inputs
+   (max |kernel - plain| <= KERNEL_RTOL * max |plain|) and against a second
+   run of itself (bit for bit), timing the kernel, the plain version and
+   one PyTorch library call;
+3. drives protocol P2 through ``DistributedMatrixTracker`` — m = 8 sites,
+   d = 1024 (the ``d_model`` of Qwen3-0.6B), eps = 0.02, 64 super-steps of
+   8 x 512 rows made on the card from ``--seed`` as a low-rank stream plus
+   noise — publishing 8 snapshots into a ``SketchStore``, then
+   ``refresh_spectra`` over them, one ``query_batch`` of 1024 directions on
+   the kernel path and one ``query_packed`` of 8 tenants x 1024 directions;
+4. holds the sketch to the reference's error checks against dense truth
+   (``A^T A`` accumulated on the card in f64): ``||A^T A - B^T B||_2 <
+   2 eps ||A||_F^2`` and ``||B x||^2 <= (1 + 1e-3) ||A x||^2`` on 256 unit
+   directions, and requires every kernel to have been launched by the main
+   path;
+5. times the served queries over repeated calls (median and spread).
+
+It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
+and last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero;
+so does a machine without CUDA, or a directory without the package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# H100 SXM data sheet, dense rates: f32 on the CUDA cores (TF32 is off) and
+# HBM3 bandwidth.  bound_ms = max(bytes / BYTES_PER_S, flops / FLOPS_F32).
+FLOPS_F32 = 67e12
+BYTES_PER_S = 3.35e12
+
+# Kernel vs plain version on the same inputs: both accumulate in IEEE f32
+# over up to 1024 terms in different orders, so they differ by rounding only.
+KERNEL_RTOL = 1e-5
+
+DEV = "cuda"
+M, D, EPS, ROWS_PER_SITE = 8, 1024, 0.02, 512
+N_DIRS, N_CHECK_DIRS, RANK = 1024, 256, 32
+PALLAS = {
+    "fd_gram": ("src/repro/kernels/fd_gram.py:52", "src/repro/kernels/fd_shrink_fused.py:60"),
+    "fd_project": ("src/repro/kernels/fd_project.py:49", "src/repro/kernels/fd_shrink_fused.py:99"),
+    "quadform": ("src/repro/kernels/quadform.py:127", "src/repro/kernels/quadform.py:92"),
+}
+
+
+def fail(msg: str) -> None:
+    """Report a failed phase on stderr and exit non-zero."""
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    """Fail with ``msg`` unless ``cond`` holds."""
+    if not cond:
+        fail(msg)
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time the card could take, and which of the two rates bounds it."""
+    t_ops, t_bytes = flops / FLOPS_F32, nbytes / BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call: CUDA events around ``reps`` calls after warm-up."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def make_stream(torch, seed: int, steps: int):
+    """``steps`` super-steps of (M * ROWS_PER_SITE, D) rows on the card and
+    the dense truth ``A^T A`` in f64: a rank-RANK signal with decaying
+    scales plus isotropic noise, like hidden-state rows of a model."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    basis = torch.linalg.qr(torch.randn(D, RANK, device=DEV, generator=gen))[0].T
+    scales = 4.0 / torch.arange(1, RANK + 1, device=DEV, dtype=torch.float32).sqrt()
+    batches, ata = [], torch.zeros(D, D, dtype=torch.float64, device=DEV)
+    for _ in range(steps):
+        coef = torch.randn(M * ROWS_PER_SITE, RANK, device=DEV, generator=gen) * scales
+        rows = coef @ basis + 0.1 * torch.randn(M * ROWS_PER_SITE, D, device=DEV, generator=gen)
+        batches.append(rows)
+        r64 = rows.double()
+        ata.addmm_(r64.T, r64)
+    return batches, ata
+
+
+def unit_dirs(torch, gen, n: int):
+    """``n`` random unit directions of length D on the card."""
+    x = torch.randn(n, D, device=DEV, generator=gen)
+    return (x / x.norm(dim=1, keepdim=True)).contiguous()
+
+
+def kernel_cases(torch, batches, l_site: int, l_coord: int):
+    """Each kernel's wrapper, plain version and library call at the shapes
+    the main path gives it, on inputs cut from the stream."""
+    from repro_torch.kernels import fd_ops, ops, ref
+
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    rows = batches[0].reshape(M, ROWS_PER_SITE, D)
+    site_buf = rows[:, : 2 * l_site].contiguous()  # (8, 400, 1024): site shrink
+    coord_buf = batches[0][: 2 * l_coord][None].contiguous()  # (1, 400, 1024): coordinator shrink
+    sketches = rows[:, :l_coord].contiguous()  # (8, 200, 1024): published sketches
+    x_one = unit_dirs(torch, gen, N_DIRS)
+    x_pack = torch.stack([unit_dirs(torch, gen, N_DIRS) for _ in range(M)])
+
+    def project_inputs(b):
+        lam, u = ref.eigh_descending(ref.ref_fd_gram_batched(b))
+        w, _ = ref.shrink_weights(lam, b.shape[1] // 2)
+        return w.contiguous(), u.contiguous(), b
+
+    cases = []
+    for label, b in (("site shrink", site_buf), ("coordinator shrink", coord_buf),
+                     ("refresh_spectra", sketches)):
+        t, l, d = b.shape
+        cases.append(dict(
+            kernel="fd_gram", shape=f"{label}: (T={t}, L={l}, d={d})",
+            pallas=PALLAS["fd_gram"][0 if t == 1 else 1],
+            run=lambda b=b: fd_ops.fd_gram(b),
+            plain=lambda b=b: ref.ref_fd_gram_batched(b),
+            library=lambda b=b: torch.bmm(b, b.mT),
+            # G is symmetric: the function needs l (l + 1) / 2 dot products
+            # per sketch (the kernel computes all l^2).
+            flops=2.0 * t * l * (l + 1) / 2 * d, nbytes=4.0 * (t * l * d + t * l * l),
+        ))
+        w, u, _ = project_inputs(b)
+        cases.append(dict(
+            kernel="fd_project", shape=f"{label}: (T={t}, L={l}, d={d})",
+            pallas=PALLAS["fd_project"][0 if t == 1 else 1],
+            run=lambda w=w, u=u, b=b: fd_ops.fd_project(w, u, b),
+            plain=lambda w=w, u=u, b=b: ref.ref_fd_project_batched(w, u, b),
+            library=lambda u=u, b=b: torch.bmm(u.mT, b),  # U^T B; the w rescale is not in it
+            flops=2.0 * t * l * l * d + t * l * d,
+            nbytes=4.0 * (t * l + t * l * l + 2 * t * l * d),
+        ))
+    for label, b, x in (("query_batch", sketches[:1], x_one[None]),
+                        ("query_packed", sketches, x_pack)):
+        t, l, d = b.shape
+        n = x.shape[1]
+        single = t == 1
+        cases.append(dict(
+            kernel="quadform", shape=f"{label}: (T={t}, L={l}, N={n}, d={d})",
+            pallas=PALLAS["quadform"][0 if single else 1],
+            run=(lambda b=b, x=x: ops.quadform(b[0], x[0])) if single
+            else (lambda b=b, x=x: ops.quadform_packed(b, x)),
+            plain=(lambda b=b, x=x: ref.ref_quadform(b[0], x[0])) if single
+            else (lambda b=b, x=x: ref.ref_quadform_packed(b, x)),
+            library=lambda b=b, x=x: (b @ x.mT).square().sum(-2),
+            flops=2.0 * t * l * n * d + 2.0 * t * l * n,
+            nbytes=4.0 * (t * l * d + t * n * d + t * n),
+        ))
+    return cases
+
+
+def run_kernel_cases(torch, cases) -> list[dict]:
+    """Check every case against its plain version, then time all three calls."""
+    results = []
+    for c in cases:
+        got, again, want = c["run"](), c["run"](), c["plain"]()
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{c['kernel']} {c['shape']}: two runs differ")
+        got = got.reshape(want.shape)
+        check(bool(torch.isfinite(got).all()), f"{c['kernel']} {c['shape']}: non-finite output")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= KERNEL_RTOL * scale,
+              f"{c['kernel']} {c['shape']}: max |kernel - plain| = {err:.3e} > "
+              f"{KERNEL_RTOL} * {scale:.3e}")
+        b_ms, b_by = bound_ms(c["flops"], c["nbytes"])
+        results.append(dict(
+            kernel=c["kernel"], shape=c["shape"], replaces=c["pallas"],
+            max_abs_err=err, max_rel_err=err / max(scale, 1e-30),
+            ms=time_ms(torch, c["run"]), plain_ms=time_ms(torch, c["plain"]),
+            library_ms=time_ms(torch, c["library"]), bound_ms=b_ms, bound_by=b_by,
+            gflop=c["flops"] / 1e9, mbytes=c["nbytes"] / 1e6,
+        ))
+    return results
+
+
+def drive_main_path(torch, batches, steps: int):
+    """P2 ingest and publish through ``DistributedMatrixTracker``, then
+    ``refresh_spectra`` and both query paths of the ``QueryEngine``."""
+    from repro_torch.core.tracker import DistributedMatrixTracker
+    from repro_torch.kernels import ops
+    from repro_torch.query import PackedRequest, QueryEngine, SketchStore
+
+    tracker = DistributedMatrixTracker(M, D, eps=EPS, protocol="P2", device=DEV)
+    store = SketchStore()
+    publish_every = max(1, steps // M)
+    phase_launches, timings = {}, {}
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    ingest_s, snaps = 0.0, []
+    for s, rows in enumerate(batches):
+        t0 = time.perf_counter()
+        tracker.update(rows)
+        torch.cuda.synchronize()
+        ingest_s += time.perf_counter() - t0
+        if (s + 1) % publish_every == 0 and len(snaps) < M:
+            snaps.append(tracker.publish(store, f"t{len(snaps)}"))
+    phase_launches["ingest"] = ops.launch_counts()
+    timings["ingest_s"] = ingest_s
+
+    engine = QueryEngine(store, device=DEV)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    warmed = engine.refresh_spectra(snaps)
+    torch.cuda.synchronize()
+    timings["refresh_s"] = time.perf_counter() - t0
+    check(warmed == len(snaps), f"refresh_spectra warmed {warmed} of {len(snaps)}")
+    phase_launches["refresh_spectra"] = _delta(ops.launch_counts(), before)
+
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    x = unit_dirs(torch, gen, N_DIRS).cpu().numpy()
+    before = ops.launch_counts()
+    served = engine.query_batch(x, tenant=snaps[-1].tenant, path="kernel")
+    phase_launches["query_batch"] = _delta(ops.launch_counts(), before)
+
+    xs = [unit_dirs(torch, gen, N_DIRS).cpu().numpy() for _ in snaps]
+    requests = [PackedRequest(s.tenant, xi) for s, xi in zip(snaps, xs)]
+    before = ops.launch_counts()
+    packed = engine.query_packed(requests)
+    phase_launches["query_packed"] = _delta(ops.launch_counts(), before)
+    launches = ops.launch_counts()
+    return dict(tracker=tracker, store=store, engine=engine, snaps=snaps, x=x, served=served,
+                xs=xs, requests=requests, packed=packed, launches=launches,
+                phase_launches=phase_launches, timings=timings)
+
+
+def time_serving(run, reps: int = 21) -> dict:
+    """Served directions per second of ``query_batch`` (1024 directions) and
+    ``query_packed`` (8 x 1024), each over ``reps`` calls on the host clock,
+    host<->device copies included: median, fastest and slowest call."""
+    engine, tenant = run["engine"], run["snaps"][-1].tenant
+    calls = {
+        "query_batch": (N_DIRS, lambda: engine.query_batch(run["x"], tenant=tenant, path="kernel")),
+        "query_packed": (len(run["requests"]) * N_DIRS,
+                         lambda: engine.query_packed(run["requests"])),
+    }
+    out = {}
+    for name, (n, fn) in calls.items():
+        fn()  # warm-up
+        secs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            secs.append(time.perf_counter() - t0)
+        secs.sort()
+        out[name] = dict(calls=reps, directions=n, qps_median=n / secs[reps // 2],
+                         qps_fastest=n / secs[0], qps_slowest=n / secs[-1])
+    return out
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def check_main_path(torch, run, ata, steps: int) -> dict:
+    """The reference's own checks (tests/test_distributed.py) and the
+    served answers' consistency, all against dense f64 truth."""
+    from repro_torch.kernels import ref
+
+    tracker, engine, snaps = run["tracker"], run["engine"], run["snaps"]
+    frob = float(torch.diagonal(ata).sum())
+    b = torch.tensor(tracker.sketch_matrix(), device=DEV, dtype=torch.float64)
+    check(bool(torch.isfinite(b).all()) and b.shape == (tracker.cfg.l_coord, D),
+          f"sketch is not a finite ({tracker.cfg.l_coord}, {D}) matrix")
+    cov_err = float(torch.linalg.eigvalsh(ata - b.T @ b).abs().max()) / frob
+    check(cov_err < 2 * EPS, f"||A^T A - B^T B||_2 / ||A||_F^2 = {cov_err} >= 2 eps")
+
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    xc = unit_dirs(torch, gen, N_CHECK_DIRS).double()
+    ax = ((xc @ ata) * xc).sum(1)
+    bx = (xc @ b.T).square().sum(1)
+    viol = int((bx > ax * (1 + 1e-3)).sum())
+    check(viol == 0, f"{viol} of {N_CHECK_DIRS} directions have ||Bx||^2 > (1+1e-3)||Ax||^2")
+
+    f_hat = tracker.frob_estimate()
+    # P2's scalar sends keep every site's unsent mass below (eps/m) f_hat.
+    check(f_hat <= frob * (1 + 1e-4) + 1.0 and frob - f_hat <= EPS * f_hat * (1 + 1e-3),
+          f"frob estimate {f_hat} vs stream mass {frob}")
+
+    est = run["served"].estimates
+    x = torch.tensor(run["x"], device=DEV, dtype=torch.float64)
+    truth = ((x @ ata) * x).sum(1).cpu().numpy()
+    check(est.shape == (N_DIRS,) and bool(torch.isfinite(torch.tensor(est)).all()),
+          "query_batch answers are not finite (1024,)")
+    served_gap = float(abs(truth - est).max()) / frob
+    check(served_gap <= 2 * EPS, f"served |Ax|^2 - |Bx|^2 gap {served_gap} > 2 eps ||A||_F^2")
+
+    # Cached path (spectra from fd_spectra) against the kernel path: the Gram
+    # trick leaves each sigma_i^2 within ~1e-7 sigma_max^2 over l = 200 rows.
+    cached = engine.query_batch(run["x"], tenant=snaps[-1].tenant, path="cached").estimates
+    s_max2 = float(engine.spectrum(snaps[-1].tenant).s[0]) ** 2
+    cache_gap = float(abs(cached - est).max()) / s_max2
+    check(cache_gap <= 1e-4, f"cached vs kernel path differ by {cache_gap} sigma_max^2")
+
+    pack_err = 0.0
+    for snap, xi, res in zip(snaps, run["xs"], run["packed"]):
+        want = ref.ref_quadform(torch.tensor(snap.matrix, device=DEV),
+                                torch.tensor(xi, device=DEV)).cpu().numpy()
+        check(res.estimates.shape == want.shape, "query_packed answer shape")
+        err = float(abs(res.estimates - want).max()) / max(float(abs(want).max()), 1e-30)
+        pack_err = max(pack_err, err)
+    check(pack_err <= KERNEL_RTOL, f"query_packed vs plain quadform: {pack_err}")
+
+    chunks_site = math.ceil(ROWS_PER_SITE / tracker.cfg.l_site)
+    chunks_coord = math.ceil(M * tracker.cfg.l_site / tracker.cfg.l_coord)
+    want = {"fd_gram": steps * (chunks_site + chunks_coord) + 1, "fd_project": 0, "quadform": 2}
+    want["fd_project"] = want["fd_gram"]
+    for name, count in run["launches"].items():
+        check(count > 0, f"kernel {name} was not launched on the main path")
+    check(run["launches"] == want, f"launches {run['launches']} != expected {want}")
+    return dict(cov_err=cov_err, one_sided_violations=viol, frob=frob, frob_estimate=f_hat,
+                served_gap=served_gap, cached_vs_kernel=cache_gap, packed_vs_plain=pack_err,
+                comm=tracker.comm_report().as_dict())
+
+
+def profile_ingest(torch, batches, steps: int) -> dict:
+    """A short profiled P2 ingest on a fresh tracker: device busy share,
+    the share of host time inside ``eigh``, and device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.tracker import DistributedMatrixTracker
+
+    tracker = DistributedMatrixTracker(M, D, eps=EPS, protocol="P2", device=DEV)
+    tracker.update(batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for rows in batches[1 : 1 + steps]:
+            tracker.update(rows)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+
+    def self_dev(e) -> float:
+        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+
+    # Device-side events only (kernels, copies): a host op's device time
+    # repeats its kernels' time.
+    dev = {e.key: self_dev(e) for e in events
+           if e.device_type == DeviceType.CUDA and self_dev(e) > 0}
+    eigh_us = sum(e.cpu_time_total for e in events if e.key == "aten::linalg_eigh")
+    busy_us = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
+    return dict(steps=steps, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                device_busy_share=busy_us / wall_us, eigh_host_share=eigh_us / wall_us,
+                eigh_calls=sum(e.count for e in events if e.key == "aten::linalg_eigh"),
+                top_device_ms={k: v / 1e3 for k, v in top})
+
+
+def main() -> int:
+    """Build, check the kernels, drive and check the main path, report."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=64, help="P2 super-steps of 8 x 512 rows")
+    ap.add_argument("--out", type=str, default="", help="write the full report here as JSON")
+    args = ap.parse_args()
+
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"no repro_torch package under {src}: run from a checkout of the repository")
+    sys.path.insert(0, str(src))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0 and smi.stdout.strip() != "", f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+
+    from repro_torch.core.distributed import ProtocolConfig
+    from repro_torch.kernels import _build, ops
+
+    t0 = time.perf_counter()
+    sources = sorted({k.source for k in ops.KERNELS.values()})
+    ptxas = _build.build(sources)
+    build_s = time.perf_counter() - t0
+
+    batches, ata = make_stream(torch, args.seed, args.steps)
+    torch.cuda.synchronize()
+    cfg = ProtocolConfig(eps=EPS, m=M, d=D).resolved()
+
+    cases = run_kernel_cases(torch, kernel_cases(torch, batches, cfg.l_site, cfg.l_coord))
+
+    run = drive_main_path(torch, batches, args.steps)
+    checks = check_main_path(torch, run, ata, args.steps)
+    serving = time_serving(run)
+    prof = profile_ingest(torch, batches, min(8, args.steps - 1)) if args.steps > 1 else {}
+
+    n_rows = args.steps * M * ROWS_PER_SITE
+    t = run["timings"]
+    summary = dict(
+        card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+        seed=args.seed, steps=args.steps, m=M, d=D, eps=EPS, l_site=cfg.l_site,
+        l_coord=cfg.l_coord, rows=n_rows, ingest_s=t["ingest_s"],
+        ingest_rows_per_s=n_rows / t["ingest_s"], serving=serving,
+        refresh_spectra_s=t["refresh_s"], eigh_host_share=prof.get("eigh_host_share"),
+        device_busy_share=prof.get("device_busy_share"), checks=checks,
+        phase_launches=run["phase_launches"],
+    )
+    kernels = []
+    for name, kernel in ops.KERNELS.items():
+        mine = [c for c in cases if c["kernel"] == name]
+        main = max(mine, key=lambda c: c["gflop"])  # the heaviest shape stands for the kernel
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{kernel.source}",
+            replaces="; ".join(PALLAS[name]), launches=run["launches"][name],
+            max_abs_err=max(c["max_abs_err"] for c in mine), ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], shape=main["shape"], shapes=mine,
+        ))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            dict(summary=summary, kernels=kernels, profile=prof, ptxas=ptxas), indent=1))
+    print(f"build: {build_s:.1f} s for {', '.join(sources)}")
+    for c in cases:
+        print(f"{c['kernel']:<10} {c['shape']:<52} ms {c['ms']:.4f}  plain {c['plain_ms']:.4f}  "
+              f"library {c['library_ms']:.4f}  bound {c['bound_ms']:.4f} ({c['bound_by']})  "
+              f"rel err {c['max_rel_err']:.2e}")
+    print("summary: " + json.dumps(summary))
+    print(card)
+    print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"} for e in kernels]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

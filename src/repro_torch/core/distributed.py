@@ -1,0 +1,301 @@
+"""Distributed matrix tracking in super-steps, with the sites as a tensor axis.
+
+The paper's transport is an event-driven network (any site may message the
+coordinator at any time).  The production engine processes site streams in
+*super-steps*: every site absorbs a batch of its local rows, evaluates the
+paper's send predicates, and a masked gather plays the role of the
+site->coordinator channel.  The reference runs one site per device under
+``shard_map``; here every per-site leaf of the state carries a leading
+``m`` axis, so
+
+  * the per-site FD sketches advance together, one batched shrink per chunk;
+  * ``all_gather`` over sites is the site axis itself, in site order 0..m-1;
+  * ``psum`` over sites is ``.sum(0)``.
+
+One card runs all m sites, deterministically.  Message accounting is at
+*protocol* level (exactly the messages the event-driven protocol would send
+— masked-out sites count zero), so the paper's communication bounds remain
+the yardstick.
+
+Super-step skew: delaying a send to the super-step boundary lets a site
+overshoot its threshold by at most the batch mass ``batch * beta``; choosing
+``batch * beta << (eps/2m) * F_hat`` keeps the end-to-end guarantee intact.
+
+Matrix protocols ported so far:
+
+    * ``P1`` — per-site FD, ship-the-sketch on threshold, FD-merge at C.
+    * ``P2`` — the paper's best: per-direction sigma^2 thresholds.  After an
+      FD shrink the buffer rows *are* ``sigma_i v_i`` (orthogonal), so the
+      send set is a row mask — no extra SVD on the hot path.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import fd as fdlib
+from repro_torch.core.comm import CommReport, build_report
+
+__all__ = [
+    "ProtocolConfig",
+    "CommCounters",
+    "P1State",
+    "P2State",
+    "p1_init",
+    "p1_step",
+    "p2_init",
+    "p2_step",
+    "p2_query",
+    "protocol_matrix",
+    "protocol_frob",
+    "make_protocol_runner",
+]
+
+
+class ProtocolConfig(NamedTuple):
+    """Static protocol configuration (size defaults via ``resolved``)."""
+    eps: float
+    m: int  # number of sites == length of the site axis
+    d: int  # row dimensionality
+    l_site: int = 0  # site sketch rows (0 -> ceil(4/eps), paper default)
+    l_coord: int = 0  # coordinator sketch rows (0 -> ceil(4/eps))
+    s: int = 0  # P3 sample size (0 -> ceil(1/eps^2 * log(1/eps)))
+    k: int = 0  # HH MG counters (0 -> ceil(2/eps), the MG_{eps/2} default)
+    q_cap: int = 0  # quantile summary capacity (0 -> ceil(8/eps) + 8)
+    lev_cap: int = 0  # leverage reservoir capacity (0 -> ceil(4/eps), floor 16)
+
+    def resolved(self) -> "ProtocolConfig":
+        """Fill size defaults: sketch rows, sample size, MG counters,
+        quantile cap, leverage reservoir cap."""
+        l_default = max(2, math.ceil(4.0 / self.eps))
+        s_default = max(8, math.ceil((1.0 / self.eps**2) * math.log(max(math.e, 1.0 / self.eps))))
+        return self._replace(
+            l_site=self.l_site or l_default,
+            l_coord=self.l_coord or l_default,
+            s=self.s or s_default,
+            k=self.k or max(2, math.ceil(2.0 / self.eps)),
+            q_cap=self.q_cap or max(32, math.ceil(8.0 / self.eps) + 8),
+            # the reference's core.leverage.default_cap
+            lev_cap=self.lev_cap or max(16, math.ceil(4.0 / self.eps)),
+        )
+
+
+class CommCounters(NamedTuple):
+    """Protocol-level message counters, () i32 tensors."""
+    scalar_msgs: torch.Tensor  # protocol-level scalar messages
+    row_msgs: torch.Tensor  # protocol-level row messages
+    broadcast_events: torch.Tensor
+
+    @staticmethod
+    def zero(device=None) -> "CommCounters":
+        """All-zero counters."""
+        z = torch.zeros((), dtype=torch.int32, device=resolve_device(device))
+        return CommCounters(z, z, z)
+
+    def report(self, m: int) -> CommReport:
+        """Collapse the counters to the engine-agnostic report."""
+        return build_report(
+            scalar_msgs=self.scalar_msgs,
+            row_msgs=self.row_msgs,
+            broadcast_events=self.broadcast_events,
+            m=m,
+        )
+
+
+def _row_sq(x: torch.Tensor) -> torch.Tensor:
+    return x.float().square().sum(-1)
+
+
+def _site_rows(cfg: ProtocolConfig, rows: torch.Tensor) -> torch.Tensor:
+    """A global (m * b, d) batch as (m, b, d): site i gets rows [i*b, (i+1)*b),
+    the contiguous split ``shard_map`` gives each device."""
+    if rows.ndim != 2 or rows.shape[1] != cfg.d or rows.shape[0] % cfg.m:
+        raise ValueError(
+            f"a super-step wants (m * b, {cfg.d}) rows with m = {cfg.m}, got {tuple(rows.shape)}"
+        )
+    return rows.reshape(cfg.m, -1, cfg.d)
+
+
+def _per_site(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """Broadcast an (m,) mask over a per-site leaf of shape (m, ...)."""
+    return mask.reshape(mask.shape + (1,) * (leaf.ndim - 1))
+
+
+def _tile(state: fdlib.FDState, m: int) -> fdlib.FDState:
+    """An unstacked FD state repeated over the site axis."""
+    return fdlib.FDState(*(leaf.expand(m, *leaf.shape).clone() for leaf in state))
+
+
+# ---------------------------------------------------------------------------
+# Protocol 1 — batched FD merge
+# ---------------------------------------------------------------------------
+
+
+class P1State(NamedTuple):
+    """Matrix P1 state: per-site FD + coordinator FD/totals."""
+    site_fd: fdlib.FDState  # per-site, leading m axis
+    f_i: torch.Tensor  # per-site (m,) f32 — mass since last ship
+    coord_fd: fdlib.FDState
+    f_c: torch.Tensor  # () f32 — mass received at C
+    f_hat: torch.Tensor  # () f32 — broadcast estimate
+    comm: CommCounters
+
+
+def p1_init(cfg: ProtocolConfig, device=None) -> P1State:
+    """Initial P1 state: all m sites and the coordinator."""
+    cfg = cfg.resolved()
+    device = resolve_device(device)
+    return P1State(
+        site_fd=_tile(fdlib.fd_init(cfg.l_site, cfg.d, device=device), cfg.m),
+        f_i=torch.zeros(cfg.m, dtype=torch.float32, device=device),
+        coord_fd=fdlib.fd_init(cfg.l_coord, cfg.d, device=device),
+        f_c=torch.zeros((), dtype=torch.float32, device=device),
+        f_hat=torch.ones((), dtype=torch.float32, device=device),
+        comm=CommCounters.zero(device),
+    )
+
+
+def p1_step(cfg: ProtocolConfig, st: P1State, rows: torch.Tensor) -> P1State:
+    """One super-step on a global (m * b, d) batch; site i takes slice i."""
+    cfg = cfg.resolved()
+    rows = _site_rows(cfg, rows)
+    site_fd = fdlib.fd_update_stream(st.site_fd, rows)
+    f_i = st.f_i + _row_sq(rows).sum(-1)
+
+    send = f_i >= (cfg.eps / (2 * cfg.m)) * st.f_hat  # (m,)
+    live = fdlib.fd_matrix(site_fd)  # (m, l_site, d)
+    payload = torch.where(send[:, None, None], live, 0.0)
+    coord_fd = fdlib.fd_update_stream(st.coord_fd, payload.reshape(-1, cfg.d))
+    shipped_rows = torch.where(send, (_row_sq(live) > 0).sum(-1), 0).sum()
+    n_scalar = send.sum()
+
+    f_c = st.f_c + torch.where(send, f_i, 0.0).sum()
+    f_i = torch.where(send, 0.0, f_i)
+    # Reset shipped sketches.
+    empty = fdlib.fd_init(cfg.l_site, cfg.d, device=rows.device)
+    site_fd = fdlib.FDState(
+        *(torch.where(_per_site(send, a), e, a) for a, e in zip(site_fd, empty))
+    )
+
+    rebroadcast = f_c / st.f_hat > 1.0 + cfg.eps / 2.0
+    f_hat = torch.where(rebroadcast, f_c, st.f_hat)
+    comm = CommCounters(
+        scalar_msgs=st.comm.scalar_msgs + n_scalar.to(torch.int32),
+        row_msgs=st.comm.row_msgs + shipped_rows.to(torch.int32),
+        broadcast_events=st.comm.broadcast_events + rebroadcast.to(torch.int32),
+    )
+    return P1State(site_fd, f_i, coord_fd, f_c, f_hat, comm)
+
+
+# ---------------------------------------------------------------------------
+# Protocol 2 — per-direction thresholds (the paper's best)
+# ---------------------------------------------------------------------------
+
+
+class P2State(NamedTuple):
+    """Matrix P2 state: per-site FD + coordinator FD/thresholds."""
+    site_fd: fdlib.FDState  # per-site, leading m axis; buffer rows are sigma_i v_i
+    f_j: torch.Tensor  # per-site (m,) f32 — scalar-message accumulator
+    coord_fd: fdlib.FDState
+    f_hat: torch.Tensor  # () f32
+    n_msg: torch.Tensor  # () i32 — scalar msgs since last broadcast
+    comm: CommCounters
+
+
+def p2_init(cfg: ProtocolConfig, device=None) -> P2State:
+    """Initial P2 state: all m sites and the coordinator."""
+    cfg = cfg.resolved()
+    device = resolve_device(device)
+    return P2State(
+        site_fd=_tile(fdlib.fd_init(cfg.l_site, cfg.d, device=device), cfg.m),
+        f_j=torch.zeros(cfg.m, dtype=torch.float32, device=device),
+        coord_fd=fdlib.fd_init(cfg.l_coord, cfg.d, device=device),
+        f_hat=torch.ones((), dtype=torch.float32, device=device),
+        n_msg=torch.zeros((), dtype=torch.int32, device=device),
+        comm=CommCounters.zero(device),
+    )
+
+
+def p2_step(cfg: ProtocolConfig, st: P2State, rows: torch.Tensor) -> P2State:
+    """One P2 super-step on a global (m * b, d) batch; site i takes slice i."""
+    cfg = cfg.resolved()
+    rows = _site_rows(cfg, rows)
+    # -- scalar totals (Algorithm 5.3 first half) --
+    f_j = st.f_j + _row_sq(rows).sum(-1)
+    send_scalar = f_j >= (cfg.eps / cfg.m) * st.f_hat  # (m,)
+    f_hat = st.f_hat + torch.where(send_scalar, f_j, 0.0).sum()
+    n_sent = send_scalar.sum().to(torch.int32)
+    f_j = torch.where(send_scalar, 0.0, f_j)
+    n_msg = st.n_msg + n_sent
+    rebroadcast = n_msg >= cfg.m
+    n_msg = torch.where(rebroadcast, 0, n_msg)
+
+    # -- direction sends (Algorithm 5.3 second half) --
+    # After fd_update the buffer rows are orthogonal sigma_i v_i, so the
+    # send set is a row mask.  Only the first l_site rows can be non-zero
+    # after a shrink, so each site ships (l_site, d) and the coordinator
+    # absorbs m * l_site rows, in site order.
+    site_fd = fdlib.fd_update_stream(st.site_fd, rows)
+    live = site_fd.buf[:, : cfg.l_site]
+    mask = _row_sq(live) >= (cfg.eps / cfg.m) * f_hat  # (m, l_site)
+    payload = torch.where(mask[..., None], live, 0.0)
+    kept = torch.where(mask[..., None], 0.0, live)
+    site_fd = site_fd._replace(buf=torch.cat([kept, site_fd.buf[:, cfg.l_site :]], dim=1))
+    coord_fd = fdlib.fd_update_stream(st.coord_fd, payload.reshape(-1, cfg.d))
+    n_rows = mask.sum().to(torch.int32)
+
+    comm = CommCounters(
+        scalar_msgs=st.comm.scalar_msgs + n_sent,
+        row_msgs=st.comm.row_msgs + n_rows,
+        broadcast_events=st.comm.broadcast_events + rebroadcast.to(torch.int32),
+    )
+    return P2State(site_fd, f_j, coord_fd, f_hat, n_msg, comm)
+
+
+def p2_query(st: P2State, x: torch.Tensor) -> torch.Tensor:
+    """Coordinator estimate of ||A x||^2."""
+    return fdlib.fd_query(st.coord_fd, x)
+
+
+# ---------------------------------------------------------------------------
+# Runner
+# ---------------------------------------------------------------------------
+
+_INITS = {"P1": p1_init, "P2": p2_init}
+_STEPS = {"P1": p1_step, "P2": p2_step}
+
+
+def protocol_matrix(protocol: str, state) -> torch.Tensor:
+    """The coordinator's sketch matrix B for any protocol state (uniform)."""
+    if protocol not in _STEPS:
+        raise KeyError(f"protocol {protocol!r} is not ported (ported: {sorted(_STEPS)})")
+    return fdlib.fd_matrix(state.coord_fd)
+
+
+def protocol_frob(protocol: str, state) -> float:
+    """Coordinator estimate of the stream mass ``||A||_F^2`` (uniform).
+
+    P1/P2 carry the coordinator's running broadcast estimate ``f_hat``
+    (within (1+eps) of ``||A||_F^2``).
+    """
+    if protocol not in _STEPS:
+        raise KeyError(f"protocol {protocol!r} is not ported (ported: {sorted(_STEPS)})")
+    return float(state.f_hat)
+
+
+def make_protocol_runner(protocol: str, cfg: ProtocolConfig, device=None):
+    """Return ``(init_state, step)`` for one protocol.
+
+    ``step(state, rows)`` consumes a global ``(m * b, d)`` tensor on the
+    state's device; site i takes rows ``[i*b, (i+1)*b)``.  Per-site state
+    leaves carry a leading ``m`` axis, the layout the reference's global
+    (sharded) state has, so states and checkpoints line up leaf for leaf.
+    """
+    if protocol not in _STEPS:
+        raise KeyError(f"protocol {protocol!r} is not ported (ported: {sorted(_STEPS)})")
+    cfg = cfg.resolved()
+    return _INITS[protocol](cfg, device), functools.partial(_STEPS[protocol], cfg)

@@ -1,0 +1,122 @@
+"""Plain PyTorch versions of every ported kernel (the ``ref.py`` contracts).
+
+The wrappers in ``fd_ops.py`` / ``ops.py`` run these for tensors that lie
+on the CPU; ``chip_smoke.py`` holds each CUDA kernel against them on the
+card.  All products accumulate in f32, as the reference's
+``preferred_element_type=f32`` does.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "eigh_descending",
+    "ref_fd_gram",
+    "ref_fd_gram_batched",
+    "ref_fd_project",
+    "ref_fd_project_batched",
+    "ref_fd_shrink",
+    "ref_fd_spectra",
+    "ref_quadform",
+    "ref_quadform_packed",
+    "shrink_weights",
+    "spectra_weights",
+]
+
+
+def ref_fd_gram(b: torch.Tensor) -> torch.Tensor:
+    """FD Gram product ``G = B @ B.T`` in f32.  b: (L, d) -> (L, L)."""
+    b32 = b.float()
+    return b32 @ b32.T
+
+
+def ref_fd_project(w: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """FD shrink projection ``diag(w) @ (U.T @ B)``.
+
+    w: (L,), u: (L, L), b: (L, d) -> (L, d) in b's dtype.
+    """
+    out = w.float()[:, None] * (u.float().T @ b.float())
+    return out.to(b.dtype)
+
+
+def ref_fd_gram_batched(b: torch.Tensor) -> torch.Tensor:
+    """Stacked FD Grams ``G_t = B_t @ B_t.T``.  b: (T, L, d) -> (T, L, L)."""
+    b32 = b.float()
+    return b32 @ b32.mT
+
+
+def ref_fd_project_batched(w: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Stacked shrink projections ``diag(w_t) @ (U_t.T @ B_t)``.
+
+    w: (T, L), u: (T, L, L), b: (T, L, d) -> (T, L, d) in b's dtype.
+    """
+    out = w.float()[..., None] * (u.float().mT @ b.float())
+    return out.to(b.dtype)
+
+
+def shrink_weights(lam: torch.Tensor, half: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """FD shrink weights from descending, clamped eigenvalues ``lam`` (T, 2l).
+
+    ``delta_t = lam_t[l]`` is the shrink mass; ``w = sqrt((lam - delta)+ / lam)``
+    with rows whose eigenvalue is ~0 weighted zero.  Shared by the plain
+    and the kernel shrink so the two differ only in their products.
+    """
+    delta = lam[:, half]
+    w = torch.sqrt((lam - delta[:, None]).clamp_min(0.0) / lam.clamp_min(1e-30))
+    w = torch.where(lam > 1e-30, w, torch.zeros_like(w))
+    return w, delta
+
+
+def spectra_weights(lam: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(s, w)`` for the spectrum refresh: ``s = sqrt(lam)``, ``w = 1/s``
+    with rows below ``1e-7 * s_max`` weighted zero."""
+    s = torch.sqrt(lam)
+    tol = s[:, :1] * 1e-7
+    w = torch.where(s > tol, 1.0 / s.clamp_min(1e-30), torch.zeros_like(s))
+    return s, w
+
+
+def eigh_descending(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``eigh`` of stacked Grams, eigenvalues descending and clamped at 0."""
+    lam, u = torch.linalg.eigh(g)  # ascending
+    return lam.flip(-1).clamp_min(0.0), u.flip(-1)
+
+
+def ref_fd_shrink(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One full FD shrink of a stacked buffer: (T, 2l, d) -> (B', delta).
+
+    Gram -> eigh (descending) -> clamp -> ``delta_t = lam_t[l]`` -> guarded
+    ``w`` -> projection, batched over the leading axis.  Also accepts an
+    unstacked (2l, d) buffer -> ((2l, d), ()).
+    """
+    squeeze = b.ndim == 2
+    bs = b[None] if squeeze else b
+    lam, u = eigh_descending(ref_fd_gram_batched(bs))
+    w, delta = shrink_weights(lam, bs.shape[1] // 2)
+    out = ref_fd_project_batched(w, u, bs)
+    if squeeze:
+        return out[0], delta[0]
+    return out, delta
+
+
+def ref_fd_spectra(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stacked sketch spectra via the Gram trick: (T, l, d) -> (s, vt).
+
+    ``s`` (T, l) descending singular values, ``vt`` (T, l, d) right singular
+    directions (rows below ``1e-7 * s_max`` zeroed).
+    """
+    lam, u = eigh_descending(ref_fd_gram_batched(b))
+    s, w = spectra_weights(lam)
+    return s, ref_fd_project_batched(w, u, b)
+
+
+def ref_quadform(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched quadratic form ``q_j = ||B x_j||^2``.  b: (L, d), x: (N, d) -> (N,)."""
+    bx = b.float() @ x.float().T
+    return (bx * bx).sum(0)
+
+
+def ref_quadform_packed(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Packed form: b (T, L, d), x (T, N, d) -> (T, N); row t uses sketch t."""
+    bx = b.float() @ x.float().mT
+    return (bx * bx).sum(1)

@@ -1,0 +1,79 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA card and ``nvcc``; they skip elsewhere.  The file
+imports neither JAX nor the reference, so it runs on a GPU machine that has
+only PyTorch:  ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
+Tolerance: 1e-5 of the largest plain value (f32 sums in another order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fd_ops, ops, ref
+
+
+def _close(got, want, rtol=1e-5):
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,l,n,d", [(8, 400, 1024, 1024), (1, 400, 1024, 1024), (3, 37, 45, 131)])
+def test_cuda_kernels_match_plain(t, l, n, d):
+    """Each CUDA kernel against its plain version on the card, ragged shapes
+    included.  Needs a CUDA card and nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(t * l + n + d)
+    b = torch.randn(t, l, d, device="cuda", generator=gen)
+    x = torch.randn(t, n, d, device="cuda", generator=gen)
+    lam, u = ref.eigh_descending(ref.ref_fd_gram_batched(b))
+    w, _ = ref.shrink_weights(lam, l // 2)
+    w, u = w.contiguous(), u.contiguous()
+    before = ops.launch_counts()
+    pairs = [
+        (fd_ops.fd_gram(b), ref.ref_fd_gram_batched(b)),
+        (fd_ops.fd_project(w, u, b), ref.ref_fd_project_batched(w, u, b)),
+        (ops.quadform_packed(b, x), ref.ref_quadform_packed(b, x)),
+        (ops.quadform(b[0], x[0]), ref.ref_quadform(b[0], x[0])),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        _close(got, want)
+    after = ops.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    assert launched == {"fd_gram": 1, "fd_project": 1, "quadform": 2}
+
+    # The whole shrink, sign-free: B'^T B' and the shrink mass delta.
+    out, delta = ops.fd_shrink(b)
+    want_out, want_delta = ref.ref_fd_shrink(b)
+    _close(out.mT @ out, want_out.mT @ want_out, rtol=1e-4)  # via f32 eigh on the card
+    _close(delta, want_delta, rtol=1e-4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd_ops.fd_gram(b.mT)
+
+
+@pytest.mark.cuda
+def test_tracker_on_the_card_launches_the_shrink_kernels():
+    """Ingest through ``DistributedMatrixTracker`` on a CUDA device runs the
+    Gram and projection kernels, and its sketch agrees with the same tracker
+    on the CPU (sign-free ``B^T B``, 1e-4 of its largest entry: f32 ``eigh``
+    on two devices).  Needs a CUDA card and nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from repro_torch.core.tracker import DistributedMatrixTracker
+
+    rows = np.random.default_rng(7).standard_normal((3, 2 * 48, 64)).astype(np.float32)
+    on_card = DistributedMatrixTracker(2, 64, eps=0.5, device="cuda")
+    on_cpu = DistributedMatrixTracker(2, 64, eps=0.5, device="cpu")
+    before = ops.launch_counts()
+    for batch in rows:
+        on_card.update(batch)
+        on_cpu.update(batch)
+    after = ops.launch_counts()
+    assert after["fd_gram"] > before["fd_gram"]
+    assert after["fd_project"] - before["fd_project"] == after["fd_gram"] - before["fd_gram"]
+    b_card = torch.from_numpy(on_card.sketch_matrix()).double()
+    b_cpu = torch.from_numpy(on_cpu.sketch_matrix()).double()
+    _close(b_card.T @ b_card, b_cpu.T @ b_cpu, rtol=1e-4)
