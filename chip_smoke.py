@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Run the PyTorch/CUDA port's paths once on one GPU and check them.
 
-    python3 chip_smoke.py [--seed 0] [--steps 64] [--out report.json]
+    python3 chip_smoke.py [--seed 0] [--steps 64] [--lev-steps 16] [--out report.json]
 
 From the root of a checkout, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
 
-1. builds the three hand-written kernels from ``src/repro_torch/kernels/csrc``
+1. builds the four hand-written kernels from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (one process per source, all at once);
 2. calls each kernel's wrapper at the shapes the main path gives it and
    holds the result against its plain PyTorch version on the same inputs
@@ -24,11 +24,28 @@ the CUDA toolkit:
    2 eps ||A||_F^2`` and ``||B x||^2 <= (1 + 1e-3) ||A x||^2`` on 256 unit
    directions, and requires every kernel to have been launched by the main
    path;
-5. times the served queries over repeated calls (median and spread).
+5. times the served queries over repeated calls (median and spread);
+6. drives ``StreamingPipeline(m=8, eps=0.02)`` on the card with one matrix
+   tenant (super-step P2) and one leverage tenant (super-step leverage P1,
+   d = 1024): both ingest the first 16 super-steps of the same stream and
+   publish; then 1024 subspace and 1024 score queries to the leverage
+   tenant and 1024 directions to the matrix tenant are submitted and
+   served by one ``flush``.  Subspace answers must lie within
+   ``err_factor * eps * ||A||_F^2`` of dense truth (err_factor 1.5, the
+   registry's), score answers within rtol 1e-3, atol 1e-5 of the f64
+   oracle ``table_scores`` on the published table (tests/test_leverage.py),
+   and the flush must have launched ``levscore`` and ``quadform``;
+7. holds ``levscore`` against its plain version at the path's shape (the
+   served ridge factor, N = 1024, d = 1024) and a ragged one, and times the
+   leverage ingest (share of ``eigh``), the host ``pinv``s and the served
+   subspace and score rates.
 
-It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero;
-so does a machine without CUDA, or a directory without the package.
+Launch counts are set to 0 just before each path (the P2 path, the
+pipeline) and read just after; comparisons of a kernel with its plain
+version are made outside those windows.  It prints the card's name and
+power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
+"device": {...}}``.  Any failed check exits non-zero; so does a machine
+without CUDA, or a directory without the package.
 """
 from __future__ import annotations
 
@@ -49,6 +66,10 @@ BYTES_PER_S = 3.35e12
 # over up to 1024 terms in different orders, so they differ by rounding only.
 KERNEL_RTOL = 1e-5
 
+# The leverage tenant's answers against the f64 oracle: the reference's own
+# tolerances (tests/test_leverage.py) and its registry err_factor.
+SCORE_RTOL, SCORE_ATOL, LEV_ERR_FACTOR = 1e-3, 1e-5, 1.5
+
 DEV = "cuda"
 M, D, EPS, ROWS_PER_SITE = 8, 1024, 0.02, 512
 N_DIRS, N_CHECK_DIRS, RANK = 1024, 256, 32
@@ -56,7 +77,9 @@ PALLAS = {
     "fd_gram": ("src/repro/kernels/fd_gram.py:52", "src/repro/kernels/fd_shrink_fused.py:60"),
     "fd_project": ("src/repro/kernels/fd_project.py:49", "src/repro/kernels/fd_shrink_fused.py:99"),
     "quadform": ("src/repro/kernels/quadform.py:127", "src/repro/kernels/quadform.py:92"),
+    "levscore": ("src/repro/kernels/levscore.py:71",),
 }
+P2_KERNELS = ("fd_gram", "fd_project", "quadform")
 
 
 def fail(msg: str) -> None:
@@ -251,16 +274,10 @@ def drive_main_path(torch, batches, steps: int):
                 phase_launches=phase_launches, timings=timings)
 
 
-def time_serving(run, reps: int = 21) -> dict:
-    """Served directions per second of ``query_batch`` (1024 directions) and
-    ``query_packed`` (8 x 1024), each over ``reps`` calls on the host clock,
-    host<->device copies included: median, fastest and slowest call."""
-    engine, tenant = run["engine"], run["snaps"][-1].tenant
-    calls = {
-        "query_batch": (N_DIRS, lambda: engine.query_batch(run["x"], tenant=tenant, path="kernel")),
-        "query_packed": (len(run["requests"]) * N_DIRS,
-                         lambda: engine.query_packed(run["requests"])),
-    }
+def time_calls(calls: dict, reps: int = 21) -> dict:
+    """Served directions per second of each ``{name: (directions, call)}``,
+    each over ``reps`` calls on the host clock, host<->device copies
+    included: median, fastest and slowest call."""
     out = {}
     for name, (n, fn) in calls.items():
         fn()  # warm-up
@@ -273,6 +290,16 @@ def time_serving(run, reps: int = 21) -> dict:
         out[name] = dict(calls=reps, directions=n, qps_median=n / secs[reps // 2],
                          qps_fastest=n / secs[0], qps_slowest=n / secs[-1])
     return out
+
+
+def time_serving(run) -> dict:
+    """``query_batch`` (1024 directions) and ``query_packed`` (8 x 1024)."""
+    engine, tenant = run["engine"], run["snaps"][-1].tenant
+    return time_calls({
+        "query_batch": (N_DIRS, lambda: engine.query_batch(run["x"], tenant=tenant, path="kernel")),
+        "query_packed": (len(run["requests"]) * N_DIRS,
+                         lambda: engine.query_packed(run["requests"])),
+    })
 
 
 def _delta(after: dict, before: dict) -> dict:
@@ -330,31 +357,31 @@ def check_main_path(torch, run, ata, steps: int) -> dict:
 
     chunks_site = math.ceil(ROWS_PER_SITE / tracker.cfg.l_site)
     chunks_coord = math.ceil(M * tracker.cfg.l_site / tracker.cfg.l_coord)
-    want = {"fd_gram": steps * (chunks_site + chunks_coord) + 1, "fd_project": 0, "quadform": 2}
+    want = {"fd_gram": steps * (chunks_site + chunks_coord) + 1, "fd_project": 0, "quadform": 2,
+            "levscore": 0}
     want["fd_project"] = want["fd_gram"]
-    for name, count in run["launches"].items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    for name in P2_KERNELS:
+        check(run["launches"][name] > 0, f"kernel {name} was not launched on the main path")
     check(run["launches"] == want, f"launches {run['launches']} != expected {want}")
     return dict(cov_err=cov_err, one_sided_violations=viol, frob=frob, frob_estimate=f_hat,
                 served_gap=served_gap, cached_vs_kernel=cache_gap, packed_vs_plain=pack_err,
                 comm=tracker.comm_report().as_dict())
 
 
-def profile_ingest(torch, batches, steps: int) -> dict:
-    """A short profiled P2 ingest on a fresh tracker: device busy share,
-    the share of host time inside ``eigh``, and device time by kernel."""
+def profile_steps(torch, step, batches) -> dict:
+    """Profile ``step(rows)`` over ``batches[1:]`` after one unprofiled step:
+    device busy share, the share of host time inside ``eigh`` (by input
+    shape), and device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.tracker import DistributedMatrixTracker
-
-    tracker = DistributedMatrixTracker(M, D, eps=EPS, protocol="P2", device=DEV)
-    tracker.update(batches[0])
+    step(batches[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
-        for rows in batches[1 : 1 + steps]:
-            tracker.update(rows)
+        for rows in batches[1:]:
+            step(rows)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
@@ -366,20 +393,194 @@ def profile_ingest(torch, batches, steps: int) -> dict:
     # repeats its kernels' time.
     dev = {e.key: self_dev(e) for e in events
            if e.device_type == DeviceType.CUDA and self_dev(e) > 0}
-    eigh_us = sum(e.cpu_time_total for e in events if e.key == "aten::linalg_eigh")
+    eigh = [e for e in prof.key_averages(group_by_input_shape=True)
+            if e.key == "aten::linalg_eigh"]
+    eigh_us = sum(e.cpu_time_total for e in eigh)
     busy_us = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
-    return dict(steps=steps, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+    return dict(steps=len(batches) - 1, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 device_busy_share=busy_us / wall_us, eigh_host_share=eigh_us / wall_us,
-                eigh_calls=sum(e.count for e in events if e.key == "aten::linalg_eigh"),
+                eigh_calls=sum(e.count for e in eigh),
+                eigh_by_shape={str(e.input_shapes): dict(calls=e.count,
+                                                         host_share=e.cpu_time_total / wall_us)
+                               for e in eigh},
                 top_device_ms={k: v / 1e3 for k, v in top})
 
 
+def profile_ingest(torch, batches, steps: int) -> dict:
+    """A short profiled P2 ingest on a fresh tracker."""
+    from repro_torch.core.tracker import DistributedMatrixTracker
+
+    tracker = DistributedMatrixTracker(M, D, eps=EPS, protocol="P2", device=DEV)
+    return profile_steps(torch, tracker.update, batches[: 1 + steps])
+
+
+def profile_leverage_ingest(torch, batches, steps: int) -> dict:
+    """A short profiled leverage P1 ingest on a fresh super-step protocol."""
+    from repro_torch.runtime import create_protocol
+
+    proto = create_protocol("P1", engine="shard", kind="leverage", m=M, d=D, eps=EPS,
+                            device=DEV)
+    return profile_steps(torch, proto.step, batches[: 1 + steps])
+
+
+def drive_pipeline(torch, batches) -> dict:
+    """The pipeline path: ``StreamingPipeline(m=8, eps=0.02)`` on the card, a
+    matrix tenant (P2) and a leverage tenant (super-step leverage P1) both
+    ingesting ``batches`` and publishing; then 1024 subspace and 1024 score
+    queries to the leverage tenant and 1024 directions to the matrix tenant
+    submitted and served by one ``flush``."""
+    from repro_torch.core.leverage import score_query, subspace_query
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import OnDemand, StreamingPipeline
+
+    pipe = StreamingPipeline(M, eps=EPS, policy=OnDemand(), max_batch=4 * N_DIRS,
+                             default_deadline_s=3600.0, device=DEV)
+    pipe.add_tenant("matrix", D, protocol="P2")
+    pipe.add_leverage_tenant("leverage", D, engine="shard")
+    tenants = ("matrix", "leverage")
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    x = {k: unit_dirs(torch, gen, N_DIRS).cpu().numpy() for k in ("subspace", "score", "matrix")}
+    ingest_s = dict.fromkeys(tenants, 0.0)
+    publish_s, snaps = {}, {}
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    for rows in batches:
+        for tenant in tenants:
+            t0 = time.perf_counter()
+            pipe.ingest(tenant, rows)
+            torch.cuda.synchronize()
+            ingest_s[tenant] += time.perf_counter() - t0
+    for tenant in tenants:
+        t0 = time.perf_counter()
+        snaps[tenant] = pipe.publish(tenant)
+        publish_s[tenant] = time.perf_counter() - t0
+    tickets = {"subspace": [], "score": []}
+    for a, b in zip(x["subspace"], x["score"]):
+        tickets["subspace"].append(pipe.submit("leverage", subspace_query(a)))
+        tickets["score"].append(pipe.submit("leverage", score_query(b)))
+    tickets["matrix"] = [pipe.submit("matrix", v) for v in x["matrix"]]
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    served = pipe.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    flush_launches = _delta(ops.launch_counts(), before)
+    launches = ops.launch_counts()
+    results = {k: [t.result() for t in v] for k, v in tickets.items()}
+    return dict(pipe=pipe, snaps=snaps, x=x, results=results, served=served,
+                launches=launches, flush_launches=flush_launches,
+                timings=dict(ingest_s=ingest_s, publish_s=publish_s, flush_s=flush_s))
+
+
+def check_pipeline(torch, prun, batches) -> dict:
+    """The leverage tenant's answers against dense truth and the f64 oracle,
+    the matrix tenant's against dense truth, and the path's launches."""
+    import numpy as np
+
+    from repro_torch.core.leverage import table_scores
+    from repro_torch.kernels import ops
+
+    pipe, snaps, x, res = prun["pipe"], prun["snaps"], prun["x"], prun["results"]
+    check(prun["served"] == 3 * N_DIRS, f"flush served {prun['served']} of {3 * N_DIRS}")
+    ata = torch.zeros(D, D, dtype=torch.float64, device=DEV)
+    for rows in batches:
+        r64 = rows.double()
+        ata.addmm_(r64.T, r64)
+    frob = float(torch.diagonal(ata).sum())
+
+    def truth(v):
+        v = torch.tensor(v, device=DEV, dtype=torch.float64)
+        return ((v @ ata) * v).sum(1).cpu().numpy()
+
+    for kind, tenant in (("subspace", "leverage"), ("score", "leverage"), ("matrix", "matrix")):
+        est = np.array([r[0] for r in res[kind]])
+        check(est.shape == (N_DIRS,) and bool(np.isfinite(est).all()),
+              f"{kind} answers are not finite ({N_DIRS},)")
+        check({r[2] for r in res[kind]} == {snaps[tenant].version},
+              f"{kind} answers not served from the published version")
+    sub = np.array([r[0] for r in res["subspace"]])
+    sub_gap = float(np.abs(sub - truth(x["subspace"])).max()) / frob
+    check(sub_gap <= LEV_ERR_FACTOR * EPS * (1 + 1e-5),
+          f"leverage subspace gap {sub_gap} > {LEV_ERR_FACTOR} eps ||A||_F^2")
+    mat = np.array([r[0] for r in res["matrix"]])
+    mat_gap = float(np.abs(mat - truth(x["matrix"])).max()) / frob
+    check(mat_gap <= 2 * EPS, f"matrix tenant gap {mat_gap} > 2 eps ||A||_F^2")
+
+    lam = float(snaps["leverage"].meta["lam"])
+    t0 = time.perf_counter()
+    oracle = table_scores(snaps["leverage"].matrix, x["score"], lam).astype(np.float64)
+    oracle_s = time.perf_counter() - t0
+    got = np.array([r[0] for r in res["score"]], np.float64)
+    bad = int((np.abs(got - oracle) > SCORE_ATOL + SCORE_RTOL * np.abs(oracle)).sum())
+    check(bad == 0, f"{bad} of {N_DIRS} score answers off the f64 oracle "
+                    f"(rtol {SCORE_RTOL}, atol {SCORE_ATOL})")
+    score_rel = float((np.abs(got - oracle) / np.maximum(np.abs(oracle), 1e-30)).max())
+
+    for name in ops.KERNELS:
+        check(prun["launches"][name] > 0, f"kernel {name} was not launched on the pipeline path")
+    for name in ("quadform", "levscore"):
+        check(prun["flush_launches"][name] > 0, f"the pipeline's flush did not launch {name}")
+    return dict(frob=frob, subspace_gap=sub_gap, matrix_gap=mat_gap, score_max_rel=score_rel,
+                score_oracle_s=oracle_s, table_rows=int(snaps["leverage"].matrix.shape[0]),
+                lam=lam, comm={t: pipe.tracker(t).comm_report().as_dict()
+                               for t in ("matrix", "leverage")})
+
+
+def levscore_cases(torch, prun) -> tuple[list[dict], float]:
+    """``levscore`` at the path's shape — the ridge factor of the published
+    leverage table, rebuilt on the host as the engine builds it (timed:
+    one f64 ``pinv`` of d x d) — and at a ragged one."""
+    from repro_torch.core.leverage import decode_leverage_snapshot, ridge_factor
+    from repro_torch.kernels import ops, ref
+
+    snap = prun["snaps"]["leverage"]
+    rows, _, w = decode_leverage_snapshot(snap.matrix)
+    t0 = time.perf_counter()
+    factor = ridge_factor(rows, w, float(snap.meta["lam"]))
+    pinv_s = time.perf_counter() - t0
+    m_path = torch.tensor(factor, dtype=torch.float32, device=DEV)
+    x_path = torch.tensor(prun["x"]["score"], device=DEV)
+    cases = []
+    for label, m, x in (("score queries", m_path, x_path),
+                        ("ragged", m_path[:1000, :1000].contiguous(),
+                         x_path[:300, :1000].contiguous())):
+        n, d = x.shape
+        cases.append(dict(
+            kernel="levscore", shape=f"{label}: (N={n}, d={d})", pallas=PALLAS["levscore"][0],
+            run=lambda m=m, x=x: ops.levscore(m, x),
+            plain=lambda m=m, x=x: ref.ref_levscore(m, x),
+            library=lambda m=m, x=x: (x @ m * x).sum(1),
+            flops=2.0 * n * d * d + 2.0 * n * d, nbytes=4.0 * (d * d + n * d + n),
+        ))
+    return cases, pinv_s
+
+
+def time_leverage_serving(prun) -> dict:
+    """Leverage subspace and score queries (1024 each) through
+    ``QueryEngine.query_batch`` against the published table."""
+    import numpy as np
+
+    engine = prun["pipe"].engine
+
+    def rows(mode, v):
+        return np.concatenate([np.full((v.shape[0], 1), mode, np.float32), v], axis=1)
+
+    q_sub, q_score = rows(0.0, prun["x"]["subspace"]), rows(1.0, prun["x"]["score"])
+    return time_calls({
+        "leverage_subspace": (N_DIRS, lambda: engine.query_batch(q_sub, tenant="leverage")),
+        "leverage_score": (N_DIRS, lambda: engine.query_batch(q_score, tenant="leverage")),
+    })
+
+
 def main() -> int:
-    """Build, check the kernels, drive and check the main path, report."""
+    """Build, check the kernels, drive and check both paths, report."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=64, help="P2 super-steps of 8 x 512 rows")
+    ap.add_argument("--lev-steps", type=int, default=16,
+                    help="pipeline super-steps (the first of the same stream)")
     ap.add_argument("--out", type=str, default="", help="write the full report here as JSON")
     args = ap.parse_args()
 
@@ -391,6 +592,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    check(2 <= args.lev_steps <= args.steps, "need 2 <= --lev-steps <= --steps")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -414,13 +616,33 @@ def main() -> int:
 
     cases = run_kernel_cases(torch, kernel_cases(torch, batches, cfg.l_site, cfg.l_coord))
 
+    # Path 1: P2 through DistributedMatrixTracker and the QueryEngine.
     run = drive_main_path(torch, batches, args.steps)
     checks = check_main_path(torch, run, ata, args.steps)
     serving = time_serving(run)
     prof = profile_ingest(torch, batches, min(8, args.steps - 1)) if args.steps > 1 else {}
 
+    # Path 2: StreamingPipeline with a matrix and a leverage tenant.
+    lev_batches = batches[: args.lev_steps]
+    prun = drive_pipeline(torch, lev_batches)
+    pipe_checks = check_pipeline(torch, prun, lev_batches)
+    lev_cases, pinv_s = levscore_cases(torch, prun)
+    cases += run_kernel_cases(torch, lev_cases)
+    lev_serving = time_leverage_serving(prun)
+    lev_prof = profile_leverage_ingest(torch, lev_batches, min(8, args.lev_steps - 1))
+
     n_rows = args.steps * M * ROWS_PER_SITE
-    t = run["timings"]
+    t, pt = run["timings"], prun["timings"]
+    lev_rows = args.lev_steps * M * ROWS_PER_SITE
+    lev_host_s = pt["ingest_s"]["leverage"] + pt["publish_s"]["leverage"]
+    pipeline = dict(
+        steps=args.lev_steps, rows=lev_rows,
+        ingest_rows_per_s={k: lev_rows / v for k, v in pt["ingest_s"].items()},
+        publish_s=pt["publish_s"], flush_s=pt["flush_s"], host_pinv_s=pinv_s,
+        leverage_pinv_share=pinv_s / lev_host_s, leverage_eigh_host_share=lev_prof["eigh_host_share"],
+        leverage_device_busy_share=lev_prof["device_busy_share"], serving=lev_serving,
+        checks=pipe_checks, launches=prun["launches"], flush_launches=prun["flush_launches"],
+    )
     summary = dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
         seed=args.seed, steps=args.steps, m=M, d=D, eps=EPS, l_site=cfg.l_site,
@@ -428,7 +650,7 @@ def main() -> int:
         ingest_rows_per_s=n_rows / t["ingest_s"], serving=serving,
         refresh_spectra_s=t["refresh_s"], eigh_host_share=prof.get("eigh_host_share"),
         device_busy_share=prof.get("device_busy_share"), checks=checks,
-        phase_launches=run["phase_launches"],
+        phase_launches=run["phase_launches"], pipeline=pipeline,
     )
     kernels = []
     for name, kernel in ops.KERNELS.items():
@@ -436,7 +658,8 @@ def main() -> int:
         main = max(mine, key=lambda c: c["gflop"])  # the heaviest shape stands for the kernel
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{kernel.source}",
-            replaces="; ".join(PALLAS[name]), launches=run["launches"][name],
+            replaces="; ".join(PALLAS[name]),
+            launches=run["launches"][name] + prun["launches"][name],
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], shape=main["shape"], shapes=mine,
@@ -444,12 +667,15 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            dict(summary=summary, kernels=kernels, profile=prof, ptxas=ptxas), indent=1))
+            dict(summary=summary, kernels=kernels, profile=prof, leverage_profile=lev_prof,
+                 ptxas=ptxas), indent=1))
     print(f"build: {build_s:.1f} s for {', '.join(sources)}")
     for c in cases:
         print(f"{c['kernel']:<10} {c['shape']:<52} ms {c['ms']:.4f}  plain {c['plain_ms']:.4f}  "
               f"library {c['library_ms']:.4f}  bound {c['bound_ms']:.4f} ({c['bound_by']})  "
               f"rel err {c['max_rel_err']:.2e}")
+    for tenant, comm in pipe_checks["comm"].items():
+        print(f"pipeline {tenant} CommReport: {json.dumps(comm)}")
     print("summary: " + json.dumps(summary))
     print(card)
     print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"} for e in kernels]}))

@@ -21,12 +21,14 @@ Super-step skew: delaying a send to the super-step boundary lets a site
 overshoot its threshold by at most the batch mass ``batch * beta``; choosing
 ``batch * beta << (eps/2m) * F_hat`` keeps the end-to-end guarantee intact.
 
-Matrix protocols ported so far:
+Protocols ported so far:
 
     * ``P1`` — per-site FD, ship-the-sketch on threshold, FD-merge at C.
     * ``P2`` — the paper's best: per-direction sigma^2 thresholds.  After an
       FD shrink the buffer rows *are* ``sigma_i v_i`` (orthogonal), so the
       send set is a row mask — no extra SVD on the hot path.
+    * ``LP1`` — leverage-score row sampling: threshold forwarding of
+      high-score rows into a coordinator reservoir, FD residual for the rest.
 """
 from __future__ import annotations
 
@@ -34,10 +36,12 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import fd as fdlib
+from repro_torch.core import leverage as levlib
 from repro_torch.core.comm import CommReport, build_report
 
 __all__ = [
@@ -50,6 +54,12 @@ __all__ = [
     "p2_init",
     "p2_step",
     "p2_query",
+    "LevP1State",
+    "lev_p1_init",
+    "lev_p1_step",
+    "lev_p1_table",
+    "lev_p1_mass",
+    "lev_p1_lambda",
     "protocol_matrix",
     "protocol_frob",
     "make_protocol_runner",
@@ -262,17 +272,189 @@ def p2_query(st: P2State, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Leverage P1 — threshold forwarding + FD residual
+#
+# The super-step counterpart of the event-driven ``LeverageP1Stream``:
+# every site scores its local rows against the coordinator factor
+# ``(B^T B + lambda I)^+`` last broadcast (B = residual FD rows + the kept
+# reservoir, lambda = eps * F_hat).  Rows whose score crosses the broadcast
+# threshold ``theta`` are shipped outright — a masked gather, site by site
+# in order — and folded into the reservoir with ``lev_merge_spill`` (the
+# all-pad candidate batch is the merge identity); reservoir spill folds
+# into the residual FD sketch, so overflow never loses mass.  Everything
+# below threshold rides the site FD sketch, shipped on the matrix-P1 mass
+# threshold ``(eps/2m) F_hat``.  Message units follow the paper: a
+# forwarded row or shipped sketch row costs one row message, a sketch ship
+# one scalar, and a rebroadcast (F_hat growth or theta doubling) costs m.
+# The scoring factor refreshes ONLY on those counted broadcasts.
+# ---------------------------------------------------------------------------
+
+
+class LevP1State(NamedTuple):
+    """Leverage P1 state: per-site FD + coordinator reservoir/factor data."""
+    site_fd: fdlib.FDState  # per-site, leading m axis — residual rows only
+    f_i: torch.Tensor  # per-site (m,) f32 — residual mass since last ship
+    coord_fd: fdlib.FDState  # residual sketch at C
+    res: levlib.LevState  # kept (row, score, weight) reservoir
+    f_res: torch.Tensor  # () f32 — residual mass received at C
+    f_hat: torch.Tensor  # () f32 — broadcast estimate of ||A||_F^2
+    theta: torch.Tensor  # () f32 — forwarding threshold
+    factor: torch.Tensor  # (d, d) f32 — last BROADCAST scoring factor
+    comm: CommCounters
+
+
+def lev_p1_init(cfg: ProtocolConfig, device=None) -> LevP1State:
+    """Initial leverage P1 state: all m sites and the coordinator."""
+    cfg = cfg.resolved()
+    device = resolve_device(device)
+    lam0 = levlib.default_lambda(cfg.eps, 1.0)
+    return LevP1State(
+        site_fd=_tile(fdlib.fd_init(cfg.l_site, cfg.d, device=device), cfg.m),
+        f_i=torch.zeros(cfg.m, dtype=torch.float32, device=device),
+        coord_fd=fdlib.fd_init(cfg.l_coord, cfg.d, device=device),
+        res=levlib.lev_init(cfg.lev_cap, cfg.d, device=device),
+        f_res=torch.zeros((), dtype=torch.float32, device=device),
+        f_hat=torch.ones((), dtype=torch.float32, device=device),
+        theta=torch.ones((), dtype=torch.float32, device=device),
+        factor=torch.eye(cfg.d, dtype=torch.float32, device=device)
+        / torch.tensor(lam0, dtype=torch.float32),
+        comm=CommCounters.zero(device),
+    )
+
+
+def _lev_factor(coord_fd: fdlib.FDState, res: levlib.LevState,
+                f_hat: torch.Tensor, cfg: ProtocolConfig) -> torch.Tensor:
+    """The scoring factor ``(B^T B + lambda I)^{-1}`` (d, d) at broadcast time.
+
+    B stacks the residual FD rows and the kept reservoir rows; the ridge
+    ``lambda = eps * max(f_hat, 1)`` keeps the Gram positive definite, so
+    an f32 ``eigh``-based inverse is exact (as in the reference).
+    """
+    ball = torch.cat([fdlib.fd_matrix(coord_fd), res.rows]).float()
+    lam = torch.tensor(cfg.eps, dtype=torch.float32) * f_hat.clamp_min(1.0)
+    g = ball.T @ ball + lam * torch.eye(cfg.d, dtype=torch.float32, device=ball.device)
+    evals, evecs = torch.linalg.eigh(g)
+    return (evecs / evals.clamp_min(1e-30)[None, :]) @ evecs.T
+
+
+def lev_p1_step(cfg: ProtocolConfig, st: LevP1State, rows: torch.Tensor) -> LevP1State:
+    """One leverage P1 super-step on a global (m * b, d) batch; site i takes slice i."""
+    cfg = cfg.resolved()
+    rows = _site_rows(cfg, rows).float()  # (m, b, d)
+    if rows.shape[1] == 0:  # nothing to absorb
+        return st
+    # Score against the LAST BROADCAST factor: between counted broadcasts
+    # the sites' view of the coordinator summary is frozen.
+    scores = ((rows @ st.factor) * rows).sum(-1)  # (m, b)
+    # A site forwards at most lev_cap rows per super-step: the top local
+    # scorers above theta.  The k-th largest score is a value, so a stable
+    # descending sort gives it whatever the order among ties.
+    k_local = min(cfg.lev_cap, scores.shape[1])
+    kth = torch.sort(scores, dim=-1, descending=True, stable=True).values[:, k_local - 1]
+    fwd = (scores >= st.theta) & (scores >= kth[:, None])  # (m, b)
+    n_fwd = fwd.sum().to(torch.int32)
+
+    # Masked ship of forwarded candidates, sites in order: a non-forwarded
+    # lane contributes a zero-score triple, the identity of lev_merge.
+    cand_rows = torch.where(fwd[..., None], rows, 0.0).reshape(-1, cfg.d)
+    cand_scores = torch.where(fwd, scores, 0.0).reshape(-1)
+    res, spilled = levlib.lev_merge_spill(
+        st.res, cand_rows, cand_scores, torch.ones_like(cand_scores)
+    )
+    # Reservoir spill folds into the residual sketch (coordinator-local):
+    # overflow raises theta, it never drops mass.
+    coord_fd = fdlib.fd_update_stream(st.coord_fd, spilled)
+    spill_mass = _row_sq(spilled).sum()
+    overflow = spill_mass > 0.0
+    # Threshold propagation: once the reservoir overflows, the entry bar
+    # jumps to the smallest kept score (doubling at minimum).
+    theta = torch.where(overflow, torch.maximum(st.theta * 2.0, res.scores[-1]), st.theta)
+
+    # Below-threshold rows ride the site FD sketch (zero rows are free).
+    site_rows = torch.where(fwd[..., None], 0.0, rows)
+    site_fd = fdlib.fd_update_stream(st.site_fd, site_rows)
+    f_i = st.f_i + _row_sq(site_rows).sum(-1)
+
+    send = f_i >= (cfg.eps / (2 * cfg.m)) * st.f_hat  # (m,)
+    live = fdlib.fd_matrix(site_fd)  # (m, l_site, d)
+    payload = torch.where(send[:, None, None], live, 0.0)
+    coord_fd = fdlib.fd_update_stream(coord_fd, payload.reshape(-1, cfg.d))
+    shipped_rows = torch.where(send, (_row_sq(live) > 0).sum(-1), 0).sum()
+    n_scalar = send.sum()
+
+    f_res = st.f_res + spill_mass + torch.where(send, f_i, 0.0).sum()
+    f_i = torch.where(send, 0.0, f_i)
+    empty = fdlib.fd_init(cfg.l_site, cfg.d, device=rows.device)
+    site_fd = fdlib.FDState(
+        *(torch.where(_per_site(send, a), e, a) for a, e in zip(site_fd, empty))
+    )
+
+    mass_kept = _row_sq(res.rows).sum()
+    rebroadcast = (f_res + mass_kept) / st.f_hat > 1.0 + cfg.eps / 2.0
+    f_hat = torch.where(rebroadcast, f_res + mass_kept, st.f_hat)
+    # The factor refreshes only when a broadcast is counted (mass growth or
+    # theta doubling); the reference computes it every step under a
+    # ``where``, here it is computed only then, for the same state.
+    factor = st.factor
+    if bool(rebroadcast | overflow):
+        factor = _lev_factor(coord_fd, res, f_hat, cfg)
+    comm = CommCounters(
+        scalar_msgs=st.comm.scalar_msgs + n_scalar.to(torch.int32),
+        row_msgs=st.comm.row_msgs + shipped_rows.to(torch.int32) + n_fwd,
+        broadcast_events=st.comm.broadcast_events
+        + rebroadcast.to(torch.int32)
+        + overflow.to(torch.int32),
+    )
+    return LevP1State(site_fd, f_i, coord_fd, res, f_res, f_hat, theta, factor, comm)
+
+
+def lev_p1_table(cfg: ProtocolConfig, st: LevP1State) -> np.ndarray:
+    """The coordinator's published ``(n, d+2)`` [row | score | weight] table.
+
+    Assembled by the shared ``core.leverage.build_p1_table`` encoder (kept
+    reservoir rows at weight 1 beside the live residual-sketch rows at
+    weight 1, on the host in f64) — the same deterministic estimator the
+    event stream publishes.
+    """
+    cfg = cfg.resolved()
+    scores = st.res.scores.cpu().numpy().astype(np.float64)
+    live = scores > 0
+    return levlib.build_p1_table(
+        st.res.rows.cpu().numpy().astype(np.float64)[live],
+        scores[live],
+        fdlib.fd_matrix(st.coord_fd).cpu().numpy(),
+        lev_p1_lambda(cfg, st),
+    )
+
+
+def lev_p1_mass(st: LevP1State) -> float:
+    """Coordinator estimate of ``||A||_F^2`` (residual + kept reservoir mass)."""
+    return float(st.f_res) + float(_row_sq(st.res.rows).sum())
+
+
+def lev_p1_lambda(cfg: ProtocolConfig, st: LevP1State) -> float:
+    """The live ridge ``lambda = eps * max(f_hat, 1)`` of a super-step state.
+
+    Based on the *broadcast* mass estimate — the same basis the in-step
+    scoring factor uses — so the score column of a published table and a
+    served score query for the same vector agree beyond timing lag.
+    """
+    return levlib.default_lambda(cfg.eps, float(st.f_hat))
+
+
+# ---------------------------------------------------------------------------
 # Runner
 # ---------------------------------------------------------------------------
 
-_INITS = {"P1": p1_init, "P2": p2_init}
-_STEPS = {"P1": p1_step, "P2": p2_step}
+_INITS = {"P1": p1_init, "P2": p2_init, "LP1": lev_p1_init}
+_STEPS = {"P1": p1_step, "P2": p2_step, "LP1": lev_p1_step}
+_MATRIX_PROTOCOLS = ("P1", "P2")
 
 
 def protocol_matrix(protocol: str, state) -> torch.Tensor:
-    """The coordinator's sketch matrix B for any protocol state (uniform)."""
-    if protocol not in _STEPS:
-        raise KeyError(f"protocol {protocol!r} is not ported (ported: {sorted(_STEPS)})")
+    """The coordinator's sketch matrix B for any matrix protocol state (uniform)."""
+    if protocol not in _MATRIX_PROTOCOLS:
+        raise KeyError(f"no matrix protocol {protocol!r} (ported: {list(_MATRIX_PROTOCOLS)})")
     return fdlib.fd_matrix(state.coord_fd)
 
 
@@ -282,13 +464,13 @@ def protocol_frob(protocol: str, state) -> float:
     P1/P2 carry the coordinator's running broadcast estimate ``f_hat``
     (within (1+eps) of ``||A||_F^2``).
     """
-    if protocol not in _STEPS:
-        raise KeyError(f"protocol {protocol!r} is not ported (ported: {sorted(_STEPS)})")
+    if protocol not in _MATRIX_PROTOCOLS:
+        raise KeyError(f"no matrix protocol {protocol!r} (ported: {list(_MATRIX_PROTOCOLS)})")
     return float(state.f_hat)
 
 
 def make_protocol_runner(protocol: str, cfg: ProtocolConfig, device=None):
-    """Return ``(init_state, step)`` for one protocol.
+    """Return ``(init_state, step)`` for one protocol (``P1``, ``P2``, ``LP1``).
 
     ``step(state, rows)`` consumes a global ``(m * b, d)`` tensor on the
     state's device; site i takes rows ``[i*b, (i+1)*b)``.  Per-site state

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their plain oracles.
 
 fd_gram / fd_project — the two matrix products of the Frequent Directions
-shrink; quadform — the batched ``||B x||^2`` serving hot-spot.  Each kernel
+shrink; quadform — the batched ``||B x||^2`` serving hot-spot; levscore —
+the batched ridge leverage score ``x^T M x`` of leverage tenants.  Each kernel
 has a source in ``csrc/``, a plain PyTorch version in ``ref.py`` and a
 wrapper in ``fd_ops.py`` / ``ops.py`` that launches it on a CUDA tensor and
 runs the plain version on a CPU tensor.  ``_build.py`` compiles the sources

@@ -6,6 +6,8 @@
   projection launch for a whole ``(T, L, d)`` pack.
 * ``quadform`` / ``quadform_packed`` — batched ``||B x_j||^2``, one launch
   of ``csrc/quadform.cu`` for one sketch or a packed stack of them.
+* ``levscore`` — batched ridge leverage scores ``x_j^T M x_j``, one launch
+  of ``csrc/levscore.cu``.
 
 Dispatch is by the tensors' device, as in fd_ops.py: CUDA launches the
 kernel or raises, CPU runs the plain version from ``ref.py``.
@@ -29,16 +31,22 @@ __all__ = [
     "fd_shrink",
     "fd_spectra",
     "launch_counts",
+    "levscore",
     "quadform",
     "quadform_packed",
     "reset_launch_counts",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 QUADFORM = CudaKernel("quadform.cu", "quadform_launch", [_P, _P, _P, _I, _I, _I, _I])
+LEVSCORE = CudaKernel("levscore.cu", "levscore_launch", [_P, _P, _P, _P, _I, _I, _L])
+# Width of the column slabs of M in csrc/levscore.cu (kCols): the kernel
+# keeps one partial per slab and query row in scratch.
+LEVSCORE_SLAB = 128
 
 # Every hand-written kernel of the port, by name.
-KERNELS = {"fd_gram": FD_GRAM, "fd_project": FD_PROJECT, "quadform": QUADFORM}
+KERNELS = {"fd_gram": FD_GRAM, "fd_project": FD_PROJECT, "quadform": QUADFORM,
+           "levscore": LEVSCORE}
 
 
 def launch_counts() -> dict[str, int]:
@@ -77,6 +85,27 @@ def quadform(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if operands_on_cpu(b=b, x=x):
         return ref.ref_quadform(b, x)
     return quadform_packed(b[None], x[None])[0]
+
+
+def levscore(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched ridge leverage scores ``x_j^T M x_j``: (d, d) x (N, d) -> (N,).
+
+    M need not be symmetric; only ``x^T M x`` is computed.  N = 0 (and
+    d = 0) answer without a launch.
+    """
+    if m.ndim != 2 or m.shape[0] != m.shape[1]:
+        raise ValueError(f"scoring factor must be square (d, d), got {tuple(m.shape)}")
+    if x.ndim != 2 or x.shape[1] != m.shape[0]:
+        raise ValueError(f"levscore shape mismatch: m{tuple(m.shape)} x{tuple(x.shape)}")
+    if operands_on_cpu(m=m, x=x):
+        return ref.ref_levscore(m, x)
+    n, d = x.shape
+    out = torch.zeros(n, dtype=torch.float32, device=x.device)
+    if n and d:
+        part = torch.empty(-(-d // LEVSCORE_SLAB) * n, dtype=torch.float32, device=x.device)
+        LEVSCORE.launch(x.device, m.data_ptr(), x.data_ptr(), out.data_ptr(), part.data_ptr(),
+                        n, d, part.numel())
+    return out
 
 
 def fd_shrink(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -17,6 +17,7 @@ __all__ = [
     "ref_fd_project_batched",
     "ref_fd_shrink",
     "ref_fd_spectra",
+    "ref_levscore",
     "ref_quadform",
     "ref_quadform_packed",
     "shrink_weights",
@@ -77,8 +78,18 @@ def spectra_weights(lam: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def eigh_descending(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``eigh`` of stacked Grams, eigenvalues descending and clamped at 0."""
-    lam, u = torch.linalg.eigh(g)  # ascending
+    """``eigh`` of stacked Grams, eigenvalues descending and clamped at 0.
+
+    The f32 solver can fail to converge on a Gram of a mostly-zero buffer
+    whose few live entries span many orders of magnitude (MKL's ``ssyevd``
+    does on such a 40 x 40 Gram from a leverage coordinator fold, where
+    the reference's solver converges); such a batch is solved in f64 and
+    rounded back to f32.
+    """
+    try:
+        lam, u = torch.linalg.eigh(g)  # ascending
+    except torch.linalg.LinAlgError:
+        lam, u = (t.to(g.dtype) for t in torch.linalg.eigh(g.double()))
     return lam.flip(-1).clamp_min(0.0), u.flip(-1)
 
 
@@ -120,3 +131,13 @@ def ref_quadform_packed(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Packed form: b (T, L, d), x (T, N, d) -> (T, N); row t uses sketch t."""
     bx = b.float() @ x.float().mT
     return (bx * bx).sum(1)
+
+
+def ref_levscore(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched ridge leverage scores ``tau_j = x_j^T M x_j`` in f32.
+
+    m: (d, d), x: (N, d) -> (N,).  Contracts ``x @ M`` (never ``M.T``: the
+    factor is a pseudo-inverse, symmetric only to rounding).
+    """
+    xf = x.float()
+    return (xf @ m.float() * xf).sum(1)

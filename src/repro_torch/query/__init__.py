@@ -10,15 +10,30 @@ direction at any time.  This package is the second half at serving scale:
                  spectrum per (tenant, version), the quadform CUDA kernel
                  path, and cross-tenant batch packing (``query_packed`` —
                  tenants whose sketches share (l, d) ride one
-                 ``quadform_packed`` launch).
+                 ``quadform_packed`` launch); leverage tenants' subspace
+                 and score queries (quadform / levscore kernels).
+  * service.py — admission front-ends: single-tenant coalescing and the
+                 multi-tenant packed service with deadlines and quotas.
 """
 from repro_torch.query.engine import PackedRequest, QueryEngine, QueryResult, Spectrum
+from repro_torch.query.service import (
+    PackedQueryService,
+    QueryService,
+    QueryShedError,
+    QueryTicket,
+    ServicePump,
+)
 from repro_torch.query.store import SketchSnapshot, SketchStore
 
 __all__ = [
+    "PackedQueryService",
     "PackedRequest",
     "QueryEngine",
     "QueryResult",
+    "QueryService",
+    "QueryShedError",
+    "QueryTicket",
+    "ServicePump",
     "SketchSnapshot",
     "SketchStore",
     "Spectrum",

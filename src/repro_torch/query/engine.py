@@ -17,9 +17,14 @@ three ways:
 All paths agree to fp tolerance; every result carries the snapshot's
 additive error bound (``delta_sum`` when known, else ``eps ||A||_F^2``).
 
-Matrix snapshots only: snapshots of the HH, quantile and leverage kinds
-(``meta["workload"]`` other than ``"matrix"``) raise ``NotImplementedError``
-until those kinds are ported.
+``meta["workload"] == "leverage"`` snapshots hold an ``(n, d+2)``
+[row | score | weight] importance-weighted row sample
+(``core.leverage.encode_leverage_snapshot``); each query is a ``(d+1,)``
+``[mode, x]`` row — a subspace query ``sum_i w_i (a_i . x)^2`` served by
+the shared ``quadform`` kernel over the weighted sample, or a ridge
+leverage score served by the ``levscore`` kernel.  Snapshots of the
+heavy-hitter and quantile kinds (``"hh"``, ``"quantile"``) raise
+``NotImplementedError`` until those kinds are ported (ROADMAP item 8).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from repro_torch import f32_on, resolve_device
 from repro_torch.obs import Observability, rehome_families
@@ -73,11 +79,14 @@ def _workload(snap: SketchSnapshot) -> str:
 
 
 def _require_matrix(snap: SketchSnapshot) -> None:
+    """Refuse what is neither a lookup kind nor matrix: the heavy-hitter and
+    quantile kinds are not ported yet (ROADMAP item 8)."""
     wl = _workload(snap)
     if wl != "matrix":
         raise NotImplementedError(
             f"tenant {snap.tenant!r}: {wl!r} snapshots are not ported yet "
-            "(the port serves matrix snapshots)"
+            "(the port serves matrix and leverage snapshots; hh and quantile "
+            "wait for ROADMAP item 8)"
         )
 
 
@@ -86,6 +95,7 @@ class QueryEngine:
 
     Matrix snapshots ride the quadform paths (kernel / cached / naive) on
     ``device``; ``query_packed`` packs many tenants per kernel launch.
+    Leverage snapshots ride their own weighted quadform / levscore sweeps.
     """
 
     _FAMILIES = (
@@ -113,9 +123,9 @@ class QueryEngine:
         self.device = resolve_device(device)
         self.obs = obs if obs is not None else Observability()
         self._cache: OrderedDict[tuple[str, int], Spectrum] = OrderedDict()
-        # Leverage tenants' ridge factors in the reference; stays empty until
-        # the leverage kind is ported, but keeps cache_stats' schema whole.
-        self._factor_cache: OrderedDict[tuple, np.ndarray] = OrderedDict()
+        # Leverage tenants' ridge factors, f32 on ``device`` (what the
+        # levscore kernel reads), per (tenant, version).
+        self._factor_cache: OrderedDict[tuple, torch.Tensor] = OrderedDict()
         self._bind_metrics()
 
     def _bind_metrics(self) -> None:
@@ -272,8 +282,13 @@ class QueryEngine:
         version: int | None = None,
         path: str = "kernel",
     ) -> QueryResult:
-        """Serve every row of ``x`` against the tenant's pinned snapshot:
-        ``||B x_j||^2`` per (d,)-direction row, on the chosen ``path``."""
+        """Serve every row of ``x`` against the tenant's pinned snapshot.
+
+        Matrix tenants: ``||B x_j||^2`` per (d,)-direction row, on the
+        chosen ``path``.  Leverage tenants: one answer per ``(d+1,)``
+        ``[mode, x]`` row (``path`` is ignored; the lookup has one
+        implementation).
+        """
         if path not in PATHS:
             raise ValueError(f"unknown query path {path!r}; choose from {PATHS}")
         with self.obs.trace("engine.query_batch", tenant=tenant, path=path):
@@ -288,8 +303,17 @@ class QueryEngine:
         path: str,
     ) -> QueryResult:
         snap = self.store.get(tenant, version)
-        _require_matrix(snap)
         x = np.asarray(x, np.float32)
+        wl = _workload(snap)
+        if wl in _LOOKUPS:
+            return QueryResult(
+                estimates=_LOOKUPS[wl](self, snap, x),
+                error_bound=snap.error_bound,
+                tenant=snap.tenant,
+                version=snap.version,
+                path=wl,
+            )
+        _require_matrix(snap)
         if x.ndim != 2 or x.shape[1] != snap.matrix.shape[1]:
             raise ValueError(
                 f"directions must be (n, {snap.matrix.shape[1]}), got {x.shape}"
@@ -315,12 +339,14 @@ class QueryEngine:
     def query_packed(self, requests: list[PackedRequest]) -> list[QueryResult]:
         """Serve many tenants' query batches, packing kernel launches.
 
-        Requests whose pinned sketches share an (l, d) shape are stacked —
-        sketches into (T, l, d), directions zero-padded to a common N into
-        (T, N, d) — and served by ONE ``quadform_packed`` launch.  Shapes
-        that appear only once go through the per-tenant kernel.  Results
-        come back in request order, one ``QueryResult`` each, identical (to
-        fp tolerance) to serial per-tenant ``query_batch``.
+        Matrix requests whose pinned sketches share an (l, d) shape are
+        stacked — sketches into (T, l, d), directions zero-padded to a
+        common N into (T, N, d) — and served by ONE ``quadform_packed``
+        launch.  Shapes that appear only once go through the per-tenant
+        kernel; leverage requests are served by their per-tenant weighted
+        sweeps in the same call.  Results come back in request order, one
+        ``QueryResult`` each, identical (to fp tolerance) to serial
+        per-tenant ``query_batch``.
         """
         with self.obs.trace("engine.query_packed", requests=len(requests)):
             return self._query_packed(requests)
@@ -330,22 +356,29 @@ class QueryEngine:
 
         snaps: list[SketchSnapshot] = []
         xs: list[np.ndarray] = []
-        for req in requests:
+        lookups: dict[int, str] = {}  # request index -> lookup workload
+        for i, req in enumerate(requests):
             snap = self.store.get(req.tenant, req.version)
-            _require_matrix(snap)
             x = np.asarray(req.x, np.float32)
-            if x.ndim != 2 or x.shape[1] != snap.matrix.shape[1]:
-                raise ValueError(
-                    f"tenant {req.tenant!r}: directions must be "
-                    f"(n, {snap.matrix.shape[1]}), got {x.shape}"
-                )
+            if _workload(snap) in _LOOKUPS:
+                lookups[i] = _workload(snap)
+            else:
+                _require_matrix(snap)
+                if x.ndim != 2 or x.shape[1] != snap.matrix.shape[1]:
+                    raise ValueError(
+                        f"tenant {req.tenant!r}: directions must be "
+                        f"(n, {snap.matrix.shape[1]}), got {x.shape}"
+                    )
             snaps.append(snap)
             xs.append(x)
 
         estimates: list[np.ndarray | None] = [None] * len(requests)
         by_shape: dict[tuple[int, int], list[int]] = {}
         for i, snap in enumerate(snaps):
-            by_shape.setdefault(snap.matrix.shape, []).append(i)
+            if i not in lookups:
+                by_shape.setdefault(snap.matrix.shape, []).append(i)
+        for i, wl in lookups.items():
+            estimates[i] = _LOOKUPS[wl](self, snaps[i], xs[i])
 
         for shape, idxs in by_shape.items():
             self._m_launches.inc()
@@ -370,15 +403,83 @@ class QueryEngine:
                 error_bound=snap.error_bound,
                 tenant=snap.tenant,
                 version=snap.version,
-                path="kernel",
+                path=lookups.get(i, "kernel"),
             )
-            for est, snap in zip(estimates, snaps)
+            for i, (est, snap) in enumerate(zip(estimates, snaps))
         ]
 
     def _kernel_batch(self, snap: SketchSnapshot, x: np.ndarray) -> np.ndarray:
         from repro_torch.kernels.ops import quadform
 
         return quadform(f32_on(self.device, snap.matrix), f32_on(self.device, x)).cpu().numpy()
+
+    def _leverage_batch(self, snap: SketchSnapshot, x: np.ndarray) -> np.ndarray:
+        """Leverage lookups: each query row is ``(d+1,)`` ``[mode, x_1..x_d]``.
+
+        Mode ``QUERY_SUBSPACE`` (0) serves the importance-weighted
+        ``||A x||^2`` estimate ``sum_i w_i (a_i . x)^2`` — the weighted
+        sample rows ride the same ``quadform`` kernel matrix snapshots
+        use.  Mode ``QUERY_SCORE`` (1) serves the approximate ridge
+        leverage score of ``x`` against the published sample's Gram via
+        the ``levscore`` kernel (the snapshot's ``meta["lam"]`` pins the
+        ridge the sample was published at).
+
+        The batch's ``error_bound`` (``eps * F_hat``) certifies the
+        SUBSPACE answers only; a ridge score lives on the ~[0, d_eff]
+        scale and carries no additive certificate — score answers are
+        diagnostics, not bounded estimates (see ``core.leverage.score_query``).
+        """
+        from repro_torch.core.leverage import QUERY_SCORE, QUERY_SUBSPACE, serve_subspace
+        from repro_torch.kernels.ops import levscore
+
+        mat = np.asarray(snap.matrix)
+        d = mat.shape[1] - 2
+        q = np.asarray(x, np.float32)
+        if q.ndim != 2 or q.shape[1] != d + 1:
+            raise ValueError(
+                f"tenant {snap.tenant!r}: leverage queries must be (n, {d + 1}) "
+                f"[mode, x] rows, got {np.asarray(x).shape}"
+            )
+        modes, dirs = q[:, 0], q[:, 1:]
+        is_sub = modes == QUERY_SUBSPACE
+        is_score = modes == QUERY_SCORE
+        if not np.all(is_sub | is_score):
+            raise ValueError(
+                f"tenant {snap.tenant!r}: leverage query mode must be "
+                f"{QUERY_SUBSPACE} (subspace) or {QUERY_SCORE} (score)"
+            )
+        out = np.empty(q.shape[0], np.float32)
+        if np.any(is_sub):
+            out[is_sub] = serve_subspace(mat, dirs[is_sub], device=self.device)
+        if np.any(is_score):
+            out[is_score] = levscore(
+                self._factor_for(snap), f32_on(self.device, dirs[is_score])
+            ).cpu().numpy()
+        return out
+
+    def _factor_for(self, snap: SketchSnapshot) -> torch.Tensor:
+        """The leverage snapshot's ridge scoring factor, LRU-cached.
+
+        Keyed ``(tenant, version)`` like ``_spectrum_for`` (same shared
+        LRU discipline via ``_lru_get``; the version pins ``meta["lam"]``),
+        which keeps repeated score sweeps against a pinned snapshot from
+        redoing the O(d^3) pseudo-inverse (numpy f64, on the host) per
+        batch.  Cached as the f32 tensor on ``device`` that the kernel reads.
+        """
+        from repro_torch.core.leverage import (
+            decode_leverage_snapshot,
+            default_lambda,
+            ridge_factor,
+        )
+
+        def compute() -> torch.Tensor:
+            rows, _, w = decode_leverage_snapshot(np.asarray(snap.matrix))
+            lam = float(snap.meta.get("lam", default_lambda(snap.eps, snap.frob)))
+            return f32_on(self.device, ridge_factor(rows, w, lam))
+
+        return self._lru_get(
+            self._factor_cache, (snap.tenant, snap.version), compute, "factor"
+        )
 
     def _cached_batch(self, snap: SketchSnapshot, x: np.ndarray) -> np.ndarray:
         spec = self._spectrum_for(snap)
@@ -409,3 +510,12 @@ class QueryEngine:
         if spec.s.size == 0:
             return 0.0
         return float(np.sum(spec.s**2) / max(float(spec.s[0] ** 2), 1e-30))
+
+
+# Non-matrix workloads: snapshot kinds served by their own per-tenant path
+# (weighted quadform / levscore sweeps for leverage) instead of joining the
+# cross-tenant quadform pack.  One dispatch point for query_batch and
+# query_packed, so adding a kind cannot desynchronize the two paths.
+_LOOKUPS = {
+    "leverage": QueryEngine._leverage_batch,
+}

@@ -2,10 +2,24 @@
 
 Ported so far:
 
-  * registry.py — typed ``SketchProtocol`` interface + one registration
-                  point; the super-step engine's matrix P1 and P2.
+  * registry.py — typed ``SketchProtocol`` / ``LeverageProtocol`` interfaces
+                  + one registration point; the event-driven and super-step
+                  engines of the matrix and leverage kinds.
+  * policies.py — publish policies and tenant quotas (a copy).
+  * pipeline.py — ``StreamingPipeline``: matrix and leverage tenants'
+                  ingest → publish → packed serve.
 """
+from repro_torch.runtime.pipeline import StreamingPipeline, TenantStats
+from repro_torch.runtime.policies import (
+    EveryKSteps,
+    FrobDrift,
+    OnDemand,
+    PublishPolicy,
+    RetryPolicy,
+    TenantQuota,
+)
 from repro_torch.runtime.registry import (
+    LeverageProtocol,
     ProtocolSpec,
     SketchProtocol,
     create_protocol,
@@ -16,8 +30,17 @@ from repro_torch.runtime.registry import (
 )
 
 __all__ = [
+    "EveryKSteps",
+    "FrobDrift",
+    "LeverageProtocol",
+    "OnDemand",
     "ProtocolSpec",
+    "PublishPolicy",
+    "RetryPolicy",
     "SketchProtocol",
+    "StreamingPipeline",
+    "TenantQuota",
+    "TenantStats",
     "create_protocol",
     "get_spec",
     "protocol_names",

@@ -2,8 +2,10 @@
 
 The reference registers every (kind, engine, protocol) implementation here
 and its consumers (``DistributedMatrixTracker``, the streaming pipeline,
-benchmarks) construct protocols through it.  Ported so far: the matrix
-workload interface and the super-step engine's P1 and P2::
+benchmarks) construct protocols through it.  Ported so far: the matrix and
+leverage workload interfaces, each on the event-driven engine
+(``core/protocols.py``, ``core/leverage.py``) and the super-step engine
+(``core/distributed.py``)::
 
     SketchProtocol
         step(rows, sites=None)   absorb a batch of stream rows
@@ -12,9 +14,21 @@ workload interface and the super-step engine's P1 and P2::
         comm_report()            uniform CommReport (paper message units)
         query(x) / query_batch() ||B x||^2 via the shared quadform kernel
 
-It also speaks the pipeline checkpoint contract — ``state_payload()`` /
-``restore_payload()`` — with the reference's leaf layout, so a payload
-taken from the reference's shard protocol restores here and vice versa.
+    LeverageProtocol
+        step(rows, sites=None)   absorb an (n, d) batch of stream rows
+        sampled_rows()           coordinator (k, d+2) [row|score|weight] table
+        total_weight()           coordinator estimate of ||A||_F^2
+        lam()                    the live ridge lambda the sample is scored at
+        subspace_query(x)        importance-weighted ||A x||^2 estimate
+        score_batch(xs)          ridge leverage scores via ops.levscore
+        snapshot_matrix()        publishable (n, d+2) encoding for the store
+
+Both also speak the pipeline checkpoint contract — ``state_payload()`` /
+``restore_payload()`` — with the reference's layout: the super-step
+engine's state as the reference's flattened leaves, the event engines'
+as their JSON-able ``state_dict``, so a payload taken from the reference
+restores here and vice versa.  The heavy-hitter and quantile kinds and
+the windowed flavours are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,11 +41,17 @@ import torch
 
 from repro_torch import f32_on, resolve_device
 from repro_torch.core import distributed as dist
+from repro_torch.core import leverage as lev
+from repro_torch.core import protocols as event
 from repro_torch.core.comm import CommReport
 
 __all__ = [
     "SketchProtocol",
+    "LeverageProtocol",
+    "EventProtocol",
+    "EventLeverageProtocol",
     "ShardProtocol",
+    "ShardLeverageProtocol",
     "ProtocolSpec",
     "register_protocol",
     "get_spec",
@@ -128,13 +148,96 @@ class SketchProtocol(_StatefulStream, abc.ABC):
         return float(self.query_batch(np.asarray(x)[None, :])[0])
 
 
+class LeverageProtocol(_StatefulStream, abc.ABC):
+    """Uniform leverage-score row-sampling interface over every engine."""
+
+    d: int
+    device: torch.device
+
+    def __init__(self, name: str, engine: str, m: int, eps: float, d: int, device=None):
+        super().__init__(name, engine, "leverage", m, eps)
+        self.d = d
+        self.device = resolve_device(device)
+        # Live ridge factor (f32, on ``device``), memoized until the next
+        # step() — repeated score_batch sweeps against unchanged state skip
+        # the O(d^3) pinv (the serving engine caches the same factor per
+        # (tenant, version)).
+        self._live_factor: torch.Tensor | None = None
+
+    def check_rows(self, rows) -> np.ndarray:
+        """Normalize an ingest batch to finite f32 ``(n, d)`` host rows."""
+        if isinstance(rows, torch.Tensor):
+            rows = rows.detach().cpu()
+        arr = np.asarray(rows, np.float32)
+        if arr.ndim != 2 or arr.shape[1] != self.d:
+            raise ValueError(
+                f"leverage ingest batch must be (n, {self.d}) rows, got shape "
+                f"{arr.shape}"
+            )
+        if arr.size and not np.all(np.isfinite(arr)):
+            raise ValueError("leverage stream rows must be finite in float32")
+        return arr
+
+    @abc.abstractmethod
+    def step(self, rows, sites: np.ndarray | None = None) -> None:
+        """Absorb an (n, d) batch of stream rows (continuing prior state)."""
+
+    @abc.abstractmethod
+    def sampled_rows(self) -> np.ndarray:
+        """The coordinator's ``(k, d+2)`` [row | score | weight] table."""
+
+    @abc.abstractmethod
+    def total_weight(self) -> float:
+        """Coordinator estimate of the stream mass ``||A||_F^2``."""
+
+    @abc.abstractmethod
+    def lam(self) -> float:
+        """The live ridge ``lambda`` the sample is scored at."""
+
+    @abc.abstractmethod
+    def comm_report(self) -> CommReport:
+        """Messages spent so far, in the paper's units."""
+
+    # -- queries: the serving engine's kernel paths, shared verbatim ---------
+
+    def subspace_query_batch(self, x: np.ndarray) -> np.ndarray:
+        """Importance-weighted ``||A x_j||^2`` per (d,) direction row.
+
+        Rides ``core.leverage.serve_subspace`` — the exact code path the
+        serving engine's leverage sweeps launch, so live and published
+        answers can never diverge.
+        """
+        return lev.serve_subspace(
+            self.sampled_rows(), np.asarray(x, np.float32), device=self.device
+        )
+
+    def subspace_query(self, x: np.ndarray) -> float:
+        """Single-direction ``||A x||^2`` estimate over the shared path."""
+        return float(self.subspace_query_batch(np.asarray(x)[None, :])[0])
+
+    def score_batch(self, x: np.ndarray) -> np.ndarray:
+        """Ridge leverage score per queried vector via ``ops.levscore``."""
+        from repro_torch.kernels.ops import levscore
+
+        if self._live_factor is None:
+            rows, _, w = lev.decode_leverage_snapshot(self.sampled_rows())
+            self._live_factor = f32_on(self.device, lev.ridge_factor(rows, w, self.lam()))
+        return levscore(self._live_factor, f32_on(self.device, x)).cpu().numpy()
+
+    def snapshot_matrix(self) -> np.ndarray:
+        """Publishable ``(n, d+2)`` [row|score|weight] encoding of the state."""
+        return lev.encode_leverage_snapshot(self.sampled_rows())
+
+
 @dataclass(frozen=True)
 class ProtocolSpec:
     """One registered (kind, engine, protocol) implementation.
 
     err_factor: multiple of the eps guarantee the protocol is certified to
     stay under — covariance error relative to ``eps ||A||_F^2`` for matrix
-    protocols (1.0 for the deterministic protocols).
+    protocols, subspace-query error relative to ``eps ||A||_F^2`` for
+    leverage sampling (1.0 for the deterministic protocols; sampling
+    protocols carry the paper's looser constants).
     """
 
     name: str
@@ -196,10 +299,119 @@ def create_protocol(
 ):
     """Instantiate a registered protocol.
 
+    Event engine:  ``create_protocol("P2", m=8, eps=0.1, d=64, seed=0)``
     Shard engine:  ``create_protocol("P2", engine="shard", m=8, d=1024,
     eps=0.02)`` — m sites on the site axis of one device.
+    Leverage:      pass ``kind="leverage"`` (streams are (n, d) row batches
+    like matrix tracking; see ``LeverageProtocol``).
+    Every factory takes ``device=`` (``None``: the CUDA card).
     """
     return get_spec(name, engine, kind).factory(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Event-driven engine adapters (core/protocols.py, core/leverage.py streams)
+# ---------------------------------------------------------------------------
+
+
+class EventProtocol(SketchProtocol):
+    """Paper-exact event-at-a-time matrix engine behind the uniform interface."""
+
+    def __init__(self, name: str, stream_cls, *, m: int, eps: float, d: int,
+                 seed: int = 0, device=None, **kw: Any):
+        super().__init__(name, "event", m, eps, d, device)
+        self._rng = np.random.default_rng(seed)
+        self._stream = stream_cls(m, eps, d, self._rng, **kw)
+        self._rr = 0  # round-robin cursor for site-less feeds
+        self._cached_result: event.MatrixResult | None = None
+
+    def step(self, rows, sites: np.ndarray | None = None) -> None:
+        """Absorb an (n, d) batch; site-less feeds get round-robin sites."""
+        rows = np.asarray(rows)
+        if sites is None:
+            sites = (np.arange(rows.shape[0]) + self._rr) % self.m
+            self._rr = int((self._rr + rows.shape[0]) % self.m)
+        self._stream.step(rows, np.asarray(sites))
+        self.rows_seen += int(rows.shape[0])
+        self._cached_result = None
+
+    def _result(self) -> event.MatrixResult:
+        # result() is pure in the stream state; cache until the next step.
+        if self._cached_result is None:
+            self._cached_result = self._stream.result()
+        return self._cached_result
+
+    def matrix(self) -> np.ndarray:
+        """The coordinator's current sketch matrix B."""
+        return np.asarray(self._result().b)
+
+    def frob_estimate(self) -> float:
+        """Coordinator estimate of ``||A||_F^2``."""
+        return float(self._result().f_hat)
+
+    def comm_report(self) -> CommReport:
+        """Messages spent so far, in the paper's units."""
+        return self._stream.comm.report(self.m)
+
+
+class EventLeverageProtocol(LeverageProtocol):
+    """Paper-style event-at-a-time leverage engine behind the interface."""
+
+    def __init__(self, name: str, stream_cls, *, m: int, eps: float, d: int,
+                 seed: int = 0, device=None, **kw: Any):
+        super().__init__(name, "event", m, eps, d, device)
+        self._rng = np.random.default_rng(seed)
+        self._stream = stream_cls(m, eps, d, self._rng, **kw)
+        self._rr = 0  # round-robin cursor for site-less feeds
+        self._cached_result: lev.LeverageResult | None = None
+
+    def step(self, rows, sites: np.ndarray | None = None) -> None:
+        """Absorb an (n, d) row batch (round-robin sites if site-less)."""
+        rows = self.check_rows(rows)
+        if sites is None:
+            sites = (np.arange(rows.shape[0]) + self._rr) % self.m
+            self._rr = int((self._rr + rows.shape[0]) % self.m)
+        self._stream.step(rows, np.asarray(sites))
+        self.rows_seen += int(rows.shape[0])
+        self._cached_result = None
+        self._live_factor = None
+
+    def _result(self) -> lev.LeverageResult:
+        if self._cached_result is None:
+            self._cached_result = self._stream.result()
+        return self._cached_result
+
+    def sampled_rows(self) -> np.ndarray:
+        """The coordinator's current [row | score | weight] table."""
+        return np.asarray(self._result().table)
+
+    def total_weight(self) -> float:
+        """Coordinator estimate of the stream mass ``||A||_F^2``."""
+        return float(self._result().f_hat)
+
+    def lam(self) -> float:
+        """The live ridge ``lambda`` the sample is scored at."""
+        return float(self._result().lam)
+
+    def comm_report(self) -> CommReport:
+        """Messages spent so far, in the paper's units."""
+        return self._stream.comm.report(self.m)
+
+    def state_payload(self) -> tuple[dict[str, np.ndarray], dict]:
+        """Full stream state as JSON-able meta (leverage state is small)."""
+        return {}, {
+            "stream": self._stream.state_dict(),
+            "rr": self._rr,
+            "rows_seen": self.rows_seen,
+        }
+
+    def restore_payload(self, arrays: dict[str, np.ndarray], meta: dict) -> None:
+        """Restore a ``state_payload`` capture bit-identically."""
+        self._stream.load_state(meta["stream"])
+        self._rr = int(meta["rr"])
+        self.rows_seen = int(meta["rows_seen"])
+        self._cached_result = None
+        self._live_factor = None
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +434,50 @@ def _rebuild(template, leaves):
     return type(template)(*(_rebuild(field, leaves) for field in template))
 
 
-class ShardProtocol(SketchProtocol):
+class _ShardCheckpointMixin:
+    """Checkpoint contract shared by every super-step protocol.
+
+    Flattens the protocol's state into the reference's leaf layout and
+    restores bit-identically; subclasses supply ``_invalidate()`` to drop
+    their host-side caches after a restore.
+    """
+
+    state: Any
+    device: torch.device
+
+    def state_payload(self) -> tuple[dict[str, np.ndarray], dict]:
+        """Flatten the protocol state into checkpoint leaves."""
+        leaves = _leaves(self.state)
+        arrays = {f"leaf_{i:03d}": leaf.cpu().numpy() for i, leaf in enumerate(leaves)}
+        return arrays, {"leaves": ["array"] * len(leaves), "rows_seen": self.rows_seen}
+
+    def restore_payload(self, arrays: dict[str, np.ndarray], meta: dict) -> None:
+        """Restore a ``state_payload`` capture bit-identically."""
+        template = _leaves(self.state)
+        tags = list(meta["leaves"])
+        if len(tags) != len(template) or set(tags) != {"array"}:
+            raise ValueError(
+                f"checkpointed state has {len(tags)} leaves tagged {sorted(set(tags))}, "
+                f"expected {len(template)} array leaves (protocol/config mismatch?)"
+            )
+        restored = []
+        for i, old in enumerate(template):
+            arr = torch.tensor(np.asarray(arrays[f"leaf_{i:03d}"]), device=self.device)
+            if tuple(arr.shape) != tuple(old.shape):
+                raise ValueError(
+                    f"checkpointed state leaf {i} has shape {tuple(arr.shape)}, "
+                    f"expected {tuple(old.shape)} (protocol/config mismatch?)"
+                )
+            restored.append(arr.to(old.dtype))
+        self.state = _rebuild(self.state, iter(restored))
+        self.rows_seen = int(meta["rows_seen"])
+        self._invalidate()
+
+    def _invalidate(self) -> None:
+        raise NotImplementedError
+
+
+class ShardProtocol(_ShardCheckpointMixin, SketchProtocol):
     """Super-step matrix engine behind the uniform interface.
 
     ``sites`` is ignored: row placement is the site axis of the batch (each
@@ -259,46 +514,123 @@ class ShardProtocol(SketchProtocol):
         """Messages spent so far, in the paper's units."""
         return self.state.comm.report(self.cfg.m)
 
-    def state_payload(self) -> tuple[dict[str, np.ndarray], dict]:
-        """Flatten the protocol state into checkpoint leaves."""
-        leaves = _leaves(self.state)
-        arrays = {f"leaf_{i:03d}": leaf.cpu().numpy() for i, leaf in enumerate(leaves)}
-        return arrays, {"leaves": ["array"] * len(leaves), "rows_seen": self.rows_seen}
-
-    def restore_payload(self, arrays: dict[str, np.ndarray], meta: dict) -> None:
-        """Restore a ``state_payload`` capture bit-identically."""
-        template = _leaves(self.state)
-        tags = list(meta["leaves"])
-        if len(tags) != len(template) or set(tags) != {"array"}:
-            raise ValueError(
-                f"checkpointed state has {len(tags)} leaves tagged {sorted(set(tags))}, "
-                f"expected {len(template)} array leaves (protocol/config mismatch?)"
-            )
-        restored = []
-        for i, old in enumerate(template):
-            arr = torch.tensor(np.asarray(arrays[f"leaf_{i:03d}"]), device=self.device)
-            if tuple(arr.shape) != tuple(old.shape):
-                raise ValueError(
-                    f"checkpointed state leaf {i} has shape {tuple(arr.shape)}, "
-                    f"expected {tuple(old.shape)} (protocol/config mismatch?)"
-                )
-            restored.append(arr.to(old.dtype))
-        self.state = _rebuild(self.state, iter(restored))
-        self.rows_seen = int(meta["rows_seen"])
+    def _invalidate(self) -> None:
         self._cached_matrix = None
 
 
-def _shard_factory(name: str):
-    def make(**kw: Any) -> ShardProtocol:
-        return ShardProtocol(name, **kw)
+class ShardLeverageProtocol(_ShardCheckpointMixin, LeverageProtocol):
+    """Super-step leverage engine behind the uniform interface.
+
+    ``sites`` is ignored: row placement is the site axis of the batch.
+    Backed by ``core.distributed.lev_p1_step`` (per-site FD residual +
+    masked candidate gather, ``lev_merge_spill`` coordinator folding).
+    """
+
+    def __init__(self, name: str, *, m: int, d: int, eps: float = 0.1,
+                 lev_cap: int = 0, l_site: int = 0, l_coord: int = 0, device=None):
+        super().__init__(name, "shard", m, eps, d, device)
+        self.cfg = dist.ProtocolConfig(
+            eps=eps, m=m, d=d, lev_cap=lev_cap, l_site=l_site, l_coord=l_coord,
+        ).resolved()
+        self.state, self._step = dist.make_protocol_runner("L" + name, self.cfg, self.device)
+        self._cached_table: np.ndarray | None = None
+
+    def step(self, rows, sites: np.ndarray | None = None) -> None:
+        """Advance one super-step on an (n, d) row batch (numpy or tensor).
+
+        A tensor already on the protocol's device is checked there (shape,
+        finite f32) and never copied through the host.
+        """
+        if isinstance(rows, torch.Tensor) and rows.device == self.device:
+            if rows.ndim != 2 or rows.shape[1] != self.d:
+                raise ValueError(
+                    f"leverage ingest batch must be (n, {self.d}) rows, got shape "
+                    f"{tuple(rows.shape)}"
+                )
+            rows = rows.float()
+            if rows.numel() and not bool(torch.isfinite(rows).all()):
+                raise ValueError("leverage stream rows must be finite in float32")
+        else:
+            rows = self.check_rows(rows)
+        self.state = self._step(self.state, f32_on(self.device, rows))
+        self.rows_seen += int(rows.shape[0])
+        self._invalidate()
+
+    def sampled_rows(self) -> np.ndarray:
+        """The coordinator's current table (one host read per step)."""
+        if self._cached_table is None:
+            self._cached_table = dist.lev_p1_table(self.cfg, self.state)
+        return self._cached_table
+
+    def total_weight(self) -> float:
+        """Coordinator estimate of the stream mass ``||A||_F^2``."""
+        return dist.lev_p1_mass(self.state)
+
+    def lam(self) -> float:
+        """The live ridge ``lambda`` the sample is scored at."""
+        return dist.lev_p1_lambda(self.cfg, self.state)
+
+    def comm_report(self) -> CommReport:
+        """Messages spent so far, in the paper's units."""
+        return self.state.comm.report(self.cfg.m)
+
+    def _invalidate(self) -> None:
+        self._cached_table = None
+        self._live_factor = None
+
+
+# ---------------------------------------------------------------------------
+# Registrations — the one place protocol names are bound to engines.
+# ---------------------------------------------------------------------------
+
+
+def _factory(cls, *args):
+    def make(**kw: Any):
+        return cls(*args, **kw)
 
     return make
 
+
+_EVENT_ERR = {"P1": 1.0, "P2": 1.0, "P3": 1.5, "P3wr": 3.0}
+
+for _name, _cls in event.MATRIX_STREAMS.items():
+    register_protocol(ProtocolSpec(
+        name=_name,
+        engine="event",
+        factory=_factory(EventProtocol, _name, _cls),
+        err_factor=_EVENT_ERR[_name],
+        description=f"event-driven matrix {_name} (paper Section 5)",
+    ))
 
 for _name in ("P1", "P2"):
     register_protocol(ProtocolSpec(
         name=_name,
         engine="shard",
-        factory=_shard_factory(_name),
+        factory=_factory(ShardProtocol, _name),
         description=f"super-step matrix {_name}, sites on a tensor axis",
     ))
+
+# Leverage sampling: deterministic P1 (kept rows exact + FD residual) meets
+# eps via the FD envelope; the score-weighted sampling P2 and the
+# super-step engine carry the sampling protocols' looser slack.
+_LEV_ERR = {"P1": 1.0, "P2": 3.0}
+
+for _name, _cls in lev.LEVERAGE_STREAMS.items():
+    register_protocol(ProtocolSpec(
+        name=_name,
+        kind="leverage",
+        engine="event",
+        factory=_factory(EventLeverageProtocol, _name, _cls),
+        err_factor=_LEV_ERR[_name],
+        description=f"event-driven leverage-score row sampling {_name}",
+    ))
+
+register_protocol(ProtocolSpec(
+    name="P1",
+    kind="leverage",
+    engine="shard",
+    factory=_factory(ShardLeverageProtocol, "P1"),
+    err_factor=1.5,
+    description="super-step leverage-score row sampling P1 "
+                "(threshold forwarding + FD residual), sites on a tensor axis",
+))

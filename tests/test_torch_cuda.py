@@ -43,7 +43,7 @@ def test_cuda_kernels_match_plain(t, l, n, d):
         _close(got, want)
     after = ops.launch_counts()
     launched = {k: after[k] - before[k] for k in after}
-    assert launched == {"fd_gram": 1, "fd_project": 1, "quadform": 2}
+    assert launched == {"fd_gram": 1, "fd_project": 1, "quadform": 2, "levscore": 0}
 
     # The whole shrink, sign-free: B'^T B' and the shrink mass delta.
     out, delta = ops.fd_shrink(b)
@@ -77,3 +77,26 @@ def test_tracker_on_the_card_launches_the_shrink_kernels():
     b_card = torch.from_numpy(on_card.sketch_matrix()).double()
     b_cpu = torch.from_numpy(on_cpu.sketch_matrix()).double()
     _close(b_card.T @ b_card, b_cpu.T @ b_cpu, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1024, 1024), (37, 131), (300, 1000)])
+def test_cuda_levscore_matches_plain(n, d):
+    """``levscore`` on the card against its plain version, on a factor that
+    is not symmetric (the kernel contracts ``M[k, i]`` as the plain version
+    does), ragged N and d included; two runs bit-equal; one launch per
+    call.  Needs a CUDA card and nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(n + d)
+    a = torch.randn(d, d, device="cuda", generator=gen)
+    m = (a @ a.T / d + torch.eye(d, device="cuda") + 0.1 * torch.randn(
+        d, d, device="cuda", generator=gen)).contiguous()
+    x = torch.randn(n, d, device="cuda", generator=gen)
+    before = ops.launch_counts()["levscore"]
+    got, again = ops.levscore(m, x), ops.levscore(m, x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["levscore"] - before == 2
+    assert torch.equal(got, again)
+    _close(got, ref.ref_levscore(m, x))
+    assert ops.levscore(m, x[:0]).shape == (0,)

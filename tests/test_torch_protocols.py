@@ -1,11 +1,12 @@
-"""The port's super-step protocols P1/P2 against the reference's shard_map engine.
+"""The port's super-step protocols against the reference's shard_map engine.
 
-The port keeps the m sites on a tensor axis; the reference keeps one site
-per device.  At m = 1 both run in this process (a one-device mesh); the
-m = 4 reference runs once in a subprocess with four fake CPU devices.
-Held equal: ``CommReport`` units, exactly.  Held close: the coordinator's
-``frob`` estimate (1e-6 relative, f32 sums in another order) and served
-``||B x||^2`` answers (1e-5 of the largest answer).
+Matrix P1/P2 and leverage P1.  The port keeps the m sites on a tensor axis;
+the reference keeps one site per device.  At m = 1 both run in this
+process (a one-device mesh); the m = 4 reference runs once in a subprocess
+with four fake CPU devices.  Held equal: ``CommReport`` units, exactly.
+Held close: the coordinator's ``frob`` (or leverage ``f_hat``) estimate
+(1e-6 relative, f32 sums in another order) and served answers — ``||B x||^2``,
+leverage subspace and score answers — (1e-5 of the largest answer).
 
 Threshold decisions (``send_scalar`` and the per-direction row mask) can
 flip for a row within float noise of ``(eps/m) f_hat``; the seeds here keep
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from conftest import run_multidevice
+from test_torch_leverage import spiky_stream
 
 from repro.core import distributed as jdist
 from repro.runtime.registry import create_protocol as ref_create
@@ -80,7 +82,7 @@ def test_single_site_matches_one_device_mesh(name):
 REF_M4 = """
 import json, numpy as np, jax, jax.numpy as jnp
 from repro.runtime.registry import create_protocol
-a, x = np.load({a!r}), np.load({x!r})
+a, x, lev = np.load({a!r}), np.load({x!r}), np.load({lev!r})
 mesh = jax.sharding.Mesh(np.array(jax.devices()), ("data",))
 out = {{}}
 for name in ("P1", "P2"):
@@ -90,18 +92,25 @@ for name in ("P1", "P2"):
         p.step(jnp.asarray(a[s * {rows}:(s + 1) * {rows}]))
     out[name] = dict(comm=p.comm_report().as_dict(), frob=p.frob_estimate(),
                      answers=p.query_batch(x).tolist())
+p = create_protocol("P1", engine="shard", kind="leverage", mesh=mesh, d={d}, eps={eps})
+for rows in lev:
+    p.step(rows)
+out["LP1"] = dict(comm=p.comm_report().as_dict(), frob=float(p.state.f_hat),
+                  answers=p.subspace_query_batch(x).tolist(), scores=p.score_batch(x).tolist())
 print("RESULT", json.dumps(out))
 """
 
 
 def test_four_sites_match_four_device_mesh(tmp_path):
+    """Matrix P1/P2 and leverage P1 at m = 4 against a four-device mesh."""
     m, steps = 4, 6
     a, x = _stream(7, steps * m * BATCH), _dirs()
-    np.save(tmp_path / "a.npy", a)
-    np.save(tmp_path / "x.npy", x)
+    lev = np.stack(spiky_stream(8, 4, m=m, d=D))
+    for name, arr in (("a", a), ("x", x), ("lev", lev)):
+        np.save(tmp_path / f"{name}.npy", arr)
     out = run_multidevice(REF_M4.format(
-        a=str(tmp_path / "a.npy"), x=str(tmp_path / "x.npy"), d=D, eps=EPS, l_site=L_SITE,
-        l_coord=L_COORD, steps=steps, rows=m * BATCH), n_devices=m)
+        a=str(tmp_path / "a.npy"), x=str(tmp_path / "x.npy"), lev=str(tmp_path / "lev.npy"),
+        d=D, eps=EPS, l_site=L_SITE, l_coord=L_COORD, steps=steps, rows=m * BATCH), n_devices=m)
     ref = json.loads(out.split("RESULT ", 1)[1])
     for name in ("P1", "P2"):
         port = create_protocol(name, engine="shard", m=m, d=D, eps=EPS, l_site=L_SITE,
@@ -111,6 +120,14 @@ def test_four_sites_match_four_device_mesh(tmp_path):
         assert port.comm_report().as_dict() == ref[name]["comm"], name
         _assert_served_parity(port.query_batch(x), ref[name]["answers"],
                               port.frob_estimate(), ref[name]["frob"])
+    port = create_protocol("P1", engine="shard", kind="leverage", m=m, d=D, eps=EPS,
+                           device="cpu")
+    for rows in lev:
+        port.step(rows)
+    assert port.comm_report().as_dict() == ref["LP1"]["comm"]
+    _assert_served_parity(port.subspace_query_batch(x), ref["LP1"]["answers"],
+                          float(port.state.f_hat), ref["LP1"]["frob"])
+    _assert_served_parity(port.score_batch(x), ref["LP1"]["scores"], 0.0, 0.0)
 
 
 @pytest.mark.parametrize("direction", ["reference_to_port", "port_to_reference"])
