@@ -6,8 +6,12 @@ kernels rewritten as hand-written CUDA C++ for Hopper (``sm_90a``).
 Core entry points:
     repro_torch.core     — FD sketch, shard protocols P1/P2, tracker
     repro_torch.query    — coordinator query serving (store -> engine)
-    repro_torch.runtime  — protocol registry
+    repro_torch.runtime  — protocol registry and the streaming pipeline
     repro_torch.kernels  — CUDA kernels, their wrappers and plain oracles
+    repro_torch.models   — the decoder LM (serving path) and its configs
+                           (``repro_torch.configs``)
+    repro_torch.serve    — batched prefill + decode (``ServeEngine``);
+                           ``python -m repro_torch.launch.serve`` drives it
 
 Every entry point takes ``device=``; left as ``None`` it means the CUDA
 card, and raises when there is none.  Pass ``device="cpu"`` to run the

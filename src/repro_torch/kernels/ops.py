@@ -8,6 +8,8 @@
   of ``csrc/quadform.cu`` for one sketch or a packed stack of them.
 * ``levscore`` — batched ridge leverage scores ``x_j^T M x_j``, one launch
   of ``csrc/levscore.cu``.
+* ``flash_attention`` — causal self-attention with GQA, a sliding window and
+  a logit soft-cap, one launch of ``csrc/flash_attention.cu``.
 
 Dispatch is by the tensors' device, as in fd_ops.py: CUDA launches the
 kernel or raises, CPU runs the plain version from ``ref.py``.
@@ -30,6 +32,7 @@ __all__ = [
     "fd_project",
     "fd_shrink",
     "fd_spectra",
+    "flash_attention",
     "launch_counts",
     "levscore",
     "quadform",
@@ -40,13 +43,19 @@ __all__ = [
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 QUADFORM = CudaKernel("quadform.cu", "quadform_launch", [_P, _P, _P, _I, _I, _I, _I])
 LEVSCORE = CudaKernel("levscore.cu", "levscore_launch", [_P, _P, _P, _P, _I, _I, _L])
+_F = ctypes.c_float
+FLASH_ATTENTION = CudaKernel("flash_attention.cu", "flash_attention_launch",
+                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F])
+# Head dims csrc/flash_attention.cu is built for, and its dtype codes.
+FLASH_HEAD_DIMS = (32, 64, 128)
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Width of the column slabs of M in csrc/levscore.cu (kCols): the kernel
 # keeps one partial per slab and query row in scratch.
 LEVSCORE_SLAB = 128
 
 # Every hand-written kernel of the port, by name.
 KERNELS = {"fd_gram": FD_GRAM, "fd_project": FD_PROJECT, "quadform": QUADFORM,
-           "levscore": LEVSCORE}
+           "levscore": LEVSCORE, "flash_attention": FLASH_ATTENTION}
 
 
 def launch_counts() -> dict[str, int]:
@@ -106,6 +115,65 @@ def levscore(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         LEVSCORE.launch(x.device, m.data_ptr(), x.data_ptr(), out.data_ptr(), part.data_ptr(),
                         n, d, part.numel())
     return out
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int = 0,
+    scale: float | None = None,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Causal self-attention with GQA: q (b, hq, s, dh), k and v (b, hkv, s, dh) -> (b, hq, s, dh).
+
+    Online softmax in f32, output in q's dtype (f32 or bf16, the same for all
+    three).  The kv head of query head h is ``h // (hq // hkv)``; ``window`` > 0
+    masks keys ``window`` or more positions behind the query, ``logit_softcap``
+    > 0 caps the logits before the mask, and ``scale`` defaults to
+    ``dh ** -0.5``.  Any s: the kernel masks the ragged edge, nothing is
+    padded.  On the card dh must be one of ``FLASH_HEAD_DIMS``; non-contiguous
+    views are copied to contiguous ones first.  There is no backward.
+    """
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention wants q (b, hq, s, dh), k and v (b, hkv, s, dh); "
+                         f"got q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    b, hq, s, dh = q.shape
+    hkv = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != s or k.shape[3] != dh:
+        raise ValueError(f"flash_attention is self-attention: k, v must be ({b}, hkv, {s}, {dh}), "
+                         f"got {tuple(k.shape)}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"GQA needs hq % hkv == 0, got {hq}, {hkv}")
+    if q.dtype not in _FLASH_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    devices = {q.device, k.device, v.device}
+    if len(devices) != 1:
+        raise ValueError(f"operands on different devices: {sorted(map(str, devices))}")
+    if q.device.type == "cpu":
+        return ref.ref_attention(q, k, v, window=window, scale=scale, logit_softcap=logit_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if dh not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel is built for head dims {FLASH_HEAD_DIMS}, "
+                         f"got {dh}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError("flash_attention has no backward (nor has the reference's)")
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    if out.numel():
+        FLASH_ATTENTION.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               b, hq, hkv, s, dh, _FLASH_DTYPES[q.dtype],
+                               dh**-0.5 if scale is None else scale, window, logit_softcap)
+    return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernel's vector loads), copied if not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fd_shrink(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -11,6 +11,7 @@ import torch
 
 __all__ = [
     "eigh_descending",
+    "ref_attention",
     "ref_fd_gram",
     "ref_fd_gram_batched",
     "ref_fd_project",
@@ -141,3 +142,41 @@ def ref_levscore(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """
     xf = x.float()
     return (xf @ m.float() * xf).sum(1)
+
+
+def ref_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int = 0,
+    scale: float | None = None,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Causal multi-head attention with GQA, a sliding window and a logit soft-cap, in f32.
+
+    q: (b, hq, sq, dh); k, v: (b, hkv, skv, dh) with hq % hkv == 0 -> (b, hq,
+    sq, dh) in q's dtype.  ``window`` > 0 masks keys ``window`` or more
+    positions behind the query; 0 means unlimited.  Query i sits at position
+    ``i + skv - sq`` of the key stream (the last sq positions, as in decode).
+    Rows that see no key answer 0.
+    """
+    _, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = dh**-0.5
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    if logit_softcap > 0.0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)  # rows that see no key
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)

@@ -12,10 +12,12 @@ import torch
 from repro_torch.kernels import fd_ops, ops, ref
 
 
-def _close(got, want, rtol=1e-5):
+def _close(got, want, rtol=1e-5, atol=None):
     got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
     assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * max(np.abs(want).max(), 1e-30))
+    if atol is None:
+        atol = rtol * max(np.abs(want).max(), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda
@@ -43,7 +45,8 @@ def test_cuda_kernels_match_plain(t, l, n, d):
         _close(got, want)
     after = ops.launch_counts()
     launched = {k: after[k] - before[k] for k in after}
-    assert launched == {"fd_gram": 1, "fd_project": 1, "quadform": 2, "levscore": 0}
+    assert launched == {"fd_gram": 1, "fd_project": 1, "quadform": 2, "levscore": 0,
+                        "flash_attention": 0}
 
     # The whole shrink, sign-free: B'^T B' and the shrink mass delta.
     out, delta = ops.fd_shrink(b)
@@ -100,3 +103,37 @@ def test_cuda_levscore_matches_plain(n, d):
     assert torch.equal(got, again)
     _close(got, ref.ref_levscore(m, x))
     assert ops.levscore(m, x[:0]).shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,dh,window,softcap,dtype", [
+    (1, 8, 2, 1000, 64, 256, 30.0, torch.float32),  # ragged, windowed, soft-capped
+    (2, 4, 4, 200, 32, 0, 0.0, torch.float32),
+    (1, 16, 8, 700, 128, 0, 0.0, torch.bfloat16),  # Qwen3-0.6B's heads, ragged s
+])
+def test_cuda_flash_attention_matches_plain(b, hq, hkv, s, dh, window, softcap, dtype):
+    """``flash_attention`` on the card against its plain version on the same
+    inputs: f32 within 1e-5 of the largest output; bf16 against the plain
+    version in f32 of the same bf16 inputs, each element within one bf16
+    rounding of itself (2^-8 of its magnitude) plus 1e-5 of the largest
+    output; two runs bit-equal; one launch per call; a head dim the kernel
+    is not built for raises.  Needs a CUDA card
+    and nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(s + dh)
+    q, k, v = (torch.randn(b, h, s, dh, device="cuda", generator=gen).to(dtype)
+               for h in (hq, hkv, hkv))
+    kw = dict(window=window, logit_softcap=softcap)
+    before = ops.launch_counts()["flash_attention"]
+    got, again = ops.flash_attention(q, k, v, **kw), ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] - before == 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    want = ref.ref_attention(q.float(), k.float(), v.float(), **kw)
+    if dtype == torch.float32:
+        _close(got, want)
+    else:
+        _close(got.float(), want, rtol=2.0**-8, atol=1e-5 * float(want.abs().max()))
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q[..., :16], k[..., :16], v[..., :16])

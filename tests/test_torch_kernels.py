@@ -108,7 +108,9 @@ def test_wrappers_check_operands_and_count_only_launches():
     ops.fd_shrink(torch.ones(2, 4, 8))
     ops.quadform(b, torch.ones(3, 8))
     ops.levscore(torch.eye(8), torch.ones(3, 8))
-    assert ops.launch_counts() == {"fd_gram": 0, "fd_project": 0, "quadform": 0, "levscore": 0}
+    ops.flash_attention(torch.ones(1, 2, 3, 8), torch.ones(1, 1, 3, 8), torch.ones(1, 1, 3, 8))
+    assert ops.launch_counts() == {"fd_gram": 0, "fd_project": 0, "quadform": 0, "levscore": 0,
+                                   "flash_attention": 0}
 
 
 def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
@@ -135,7 +137,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 15
     scanned = {f.relative_to(REPO / "src" / "repro_torch").as_posix() for f in files[:-1]}
     assert {"core/leverage.py", "core/protocols.py", "query/service.py",
-            "runtime/pipeline.py", "runtime/policies.py"} <= scanned
+            "runtime/pipeline.py", "runtime/policies.py", "models/attention.py",
+            "models/transformer.py", "serve/engine.py", "configs/registry.py"} <= scanned
     bad = {
         f"{f.relative_to(REPO)}: {name}"
         for f in files
