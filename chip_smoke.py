@@ -7,8 +7,12 @@
 From the root of a checkout, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
 
-1. builds the five hand-written kernels from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` (one process per source, all at once);
+1. builds the hand-written kernels' six sources from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
+   all at once), prints each kernel's ptxas registers, spills and static
+   shared memory, and counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   load) instructions in the SASS of ``flash_attention_wgmma.cu``: both must
+   be there;
 2. calls each kernel's wrapper at the shapes the main path gives it and
    holds the result against its plain PyTorch version on the same inputs
    (max |kernel - plain| <= KERNEL_RTOL * max |plain|) and against a second
@@ -43,8 +47,9 @@ the CUDA toolkit:
 8. holds ``flash_attention`` against its plain version at the serving
    path's shape (b = 4, hq = 16, hkv = 8, s = 4096, dh = 128, bf16, causal:
    each element within one bf16 rounding of itself, ``BF16_ROUNDING``, of
-   the plain version in f32 on the same bf16 inputs) and at a ragged, windowed,
-   soft-capped f32 one (``KERNEL_RTOL``), timing SDPA beside it;
+   the plain version in f32 on the same bf16 inputs) and at a ragged,
+   windowed, soft-capped one in bf16 (the same check) and in f32
+   (``KERNEL_RTOL``), timing SDPA beside the serving shape;
 9. serves Qwen3-0.6B (``configs/qwen3_0_6b.py``, all 28 layers, random bf16
    weights from ``--seed``, ``attn_impl="pallas"``) through
    ``ServeEngine.generate``: 4 random prompts of 4096 tokens, 32 new tokens
@@ -70,6 +75,8 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -146,6 +153,59 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_attention_kernel_wgmma<128>`` from its mangled name."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if m:
+            n, start = int(m.group()), i + len(m.group())
+            name = mangled[start:start + n]
+            if "kernel" in name:
+                arg = re.match(r"ILi(\d+)E", mangled[start + n:])
+                return f"{name}<{arg.group(1)}>" if arg else name
+            i = start + n
+        else:
+            i += 1
+    return mangled
+
+
+def ptxas_summary(reports: dict) -> list[dict]:
+    """Registers, spills and static shared memory of every kernel in the
+    ptxas reports of ``_build.build`` (dynamic shared memory is set at launch)."""
+    rows = []
+    for source, text in sorted(reports.items()):
+        name, spills = "?", (0, 0)
+        for line in text.splitlines():
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Function properties for (\w+)", line)
+            if m:
+                name = kernel_name(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", line)
+                rows.append(dict(source=source, kernel=name, registers=int(m.group(1)),
+                                 spill_stores=spills[0], spill_loads=spills[1],
+                                 static_smem=int(smem.group(1)) if smem else 0))
+    return rows
+
+
+def sass_counts(library: Path) -> dict:
+    """How many wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions the
+    SASS of a built library holds, by ``cuobjdump --dump-sass``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or str(Path(CUDA_HOME or "/usr/local/cuda") / "bin"
+                                            / "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True,
+                         timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed on {library}: {out.stderr}")
+    lines = out.stdout.splitlines()
+    return {op: sum(1 for line in lines if op in line) for op in ("HGMMA", "UTMALDG")}
 
 
 def make_stream(torch, seed: int, steps: int):
@@ -234,6 +294,8 @@ def kernel_cases(torch, batches, l_site: int, l_coord: int):
 
 def run_kernel_cases(torch, cases) -> list[dict]:
     """Check every case against its plain version, then time all three calls."""
+    from repro_torch.kernels import ops
+
     results = []
     for c in cases:
         # A case may hold the kernel to the plain version in f32 (``want``).
@@ -262,6 +324,7 @@ def run_kernel_cases(torch, cases) -> list[dict]:
             extra["bound_f32_ms"] = bound_ms(c["flops"], c["nbytes"])[0]
         results.append(dict(
             kernel=c["kernel"], shape=c["shape"], replaces=c["pallas"],
+            source=c.get("source", ops.KERNELS[c["kernel"]][0].source),
             max_abs_err=err, max_rel_err=err / max(scale, 1e-30), err_over_tol=err_over_tol,
             ms=time_ms(torch, c["run"]), plain_ms=time_ms(torch, c["plain"]),
             library_ms=time_ms(torch, c["library"]) if c["library"] else None,
@@ -633,7 +696,8 @@ def attention_pairs(s: int, window: int) -> int:
 def flash_cases(torch, seed: int, prompt_len: int) -> list[dict]:
     """``flash_attention`` at the serving path's shape (bf16, Qwen3-0.6B's
     heads, ``SERVE_BATCH`` prompts of ``prompt_len``) and at a ragged,
-    windowed, soft-capped f32 one, on random inputs from ``seed``."""
+    windowed, soft-capped one in bf16 and in f32, on random inputs from
+    ``seed``."""
     from repro_torch.kernels import ops, ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -641,6 +705,7 @@ def flash_cases(torch, seed: int, prompt_len: int) -> list[dict]:
     cases = []
     for label, (b, hq, hkv, s, dh, window, cap, dtype) in (
         ("serving prefill", (SERVE_BATCH, 16, 8, prompt_len, 128, 0, 0.0, torch.bfloat16)),
+        ("ragged, windowed, soft-capped", (1, 8, 2, 1000, 64, 256, 30.0, torch.bfloat16)),
         ("ragged, windowed, soft-capped", (1, 8, 2, 1000, 64, 256, 30.0, torch.float32)),
     ):
         q, k, v = (torch.randn(b, h, s, dh, device=DEV, generator=gen).to(dtype)
@@ -653,6 +718,7 @@ def flash_cases(torch, seed: int, prompt_len: int) -> list[dict]:
             shape=f"{label}: (b={b}, hq={hq}, hkv={hkv}, s={s}, dh={dh}, window={window}, "
                   f"softcap={cap}, {str(dtype).split('.')[-1]})",
             pallas=PALLAS["flash_attention"][0],
+            source=(ops.FLASH_ATTENTION_BF16 if bf16 else ops.FLASH_ATTENTION).source,
             run=lambda q=q, k=k, v=v, kw=kw: ops.flash_attention(q, k, v, **kw),
             plain=lambda q=q, k=k, v=v, kw=kw: ref.ref_attention(q, k, v, **kw),
             want=lambda q=q, k=k, v=v, kw=kw: ref.ref_attention(q.float(), k.float(), v.float(),
@@ -842,9 +908,12 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
 
     t0 = time.perf_counter()
-    sources = sorted({k.source for k in ops.KERNELS.values()})
+    sources = sorted({k.source for ks in ops.KERNELS.values() for k in ks})
     ptxas = _build.build(sources)
     build_s = time.perf_counter() - t0
+    sass = sass_counts(_build.library_path(ops.FLASH_ATTENTION_BF16.source))
+    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+          f"{ops.FLASH_ATTENTION_BF16.source} has no wgmma or no TMA load in its SASS: {sass}")
 
     batches, ata = make_stream(torch, args.seed, args.steps)
     torch.cuda.synchronize()
@@ -911,11 +980,11 @@ def main() -> int:
         profile=serve_prof, f32_checks=f32_checks, phase_s=serve_phase_s,
     )
     kernels = []
-    for name, kernel in ops.KERNELS.items():
+    for name in ops.KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
         main = max(mine, key=lambda c: c["gflop"])  # the heaviest shape stands for the kernel
         kernels.append(dict(
-            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{kernel.source}",
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{main['source']}",
             replaces="; ".join(PALLAS[name]),
             launches=run["launches"][name] + prun["launches"][name] + srun["launches"][name],
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=main["ms"],
@@ -928,6 +997,12 @@ def main() -> int:
             dict(summary=summary, kernels=kernels, profile=prof, leverage_profile=lev_prof,
                  ptxas=ptxas), indent=1))
     print(f"build: {build_s:.1f} s for {', '.join(sources)}")
+    for row in ptxas_summary(ptxas):
+        print(f"ptxas {row['source']} {row['kernel']}: {row['registers']} registers, spills "
+              f"{row['spill_stores']} B stored / {row['spill_loads']} B loaded, static smem "
+              f"{row['static_smem']} B")
+    print(f"SASS of {ops.FLASH_ATTENTION_BF16.source}: {sass['HGMMA']} HGMMA (wgmma), "
+          f"{sass['UTMALDG']} UTMALDG (TMA loads)")
     for c in cases:
         lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         print(f"{c['kernel']:<10} {c['shape']:<52} ms {c['ms']:.4f}  plain {c['plain_ms']:.4f}  "

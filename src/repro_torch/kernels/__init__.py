@@ -4,7 +4,8 @@ fd_gram / fd_project — the two matrix products of the Frequent Directions
 shrink; quadform — the batched ``||B x||^2`` serving hot-spot; levscore —
 the batched ridge leverage score ``x^T M x`` of leverage tenants;
 flash_attention — causal GQA self-attention with an online softmax, the
-prefill of the model stack's serving path.  Each kernel
+prefill of the model stack's serving path (bf16 on the tensor cores in
+``flash_attention_wgmma.cu``, f32 in ``flash_attention.cu``).  Each kernel
 has a source in ``csrc/``, a plain PyTorch version in ``ref.py`` and a
 wrapper in ``fd_ops.py`` / ``ops.py`` that launches it on a CUDA tensor and
 runs the plain version on a CPU tensor.  ``_build.py`` compiles the sources

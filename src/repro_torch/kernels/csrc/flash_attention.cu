@@ -1,10 +1,11 @@
 // Causal self-attention with GQA, a sliding window and a logit soft-cap,
-// computed with an online softmax:
-//   q (b, hq, s, dh), k and v (b, hkv, s, dh), all f32 or all bf16
-//   -> o (b, hq, s, dh) in q's type; all arithmetic in f32.
+// computed with an online softmax on f32 inputs:
+//   q (b, hq, s, dh), k and v (b, hkv, s, dh), all f32 -> o (b, hq, s, dh) f32.
 //
 // Replaces the Pallas kernel
 //   src/repro/kernels/flash_attention.py  flash_attention_pallas (_flash_kernel)
+// for f32 inputs; bf16 inputs go to csrc/flash_attention_wgmma.cu, on the
+// tensor cores.
 //
 // For query row i of head h it computes, with j over the keys of kv head
 // h / (hq / hkv) that the row may see (j <= i, and j > i - window when
@@ -44,13 +45,11 @@
 // zeros, keys past s are masked, and only rows below s are stored.
 //
 // What bounds it on an H100: operations.  At Qwen3-0.6B's prefill shape
-// (b = 4, hq = 16, hkv = 8, s = 4096, dh = 128, bf16) the causal half needs
-// 4 b hq dh s (s + 1) / 2 = 2.75e11 FLOPs on 201 MB: 4.1 ms on the CUDA
-// cores in f32 (67 TFLOP/s), 0.28 ms on the tensor cores in bf16
-// (989 TFLOP/s), 0.06 ms of memory traffic.  This kernel does its products
-// as f32 FMAs on the CUDA cores; wgmma on bf16 tiles is later work.
+// (b = 4, hq = 16, hkv = 8, s = 4096, dh = 128) the causal half needs
+// 4 b hq dh s (s + 1) / 2 = 2.75e11 FLOPs: 4.1 ms on the CUDA cores in f32
+// (67 TFLOP/s, TF32 off).  This kernel does its products as f32 FMAs on the
+// CUDA cores.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,52 +78,30 @@ struct Tile {
       sizeof(float) * (static_cast<size_t>(kBQ + kBKV) * kStride + kBQ * kPStride);
 };
 
-// 16 bytes of the input type from global memory to f32 in shared memory.
-__device__ __forceinline__ void load16(const float* src, float* dst, float mul) {
-  const float4 a = *reinterpret_cast<const float4*>(src);
-  *reinterpret_cast<float4*>(dst) = make_float4(a.x * mul, a.y * mul, a.z * mul, a.w * mul);
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst, float mul) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]);
-  const float2 d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x * mul, a.y * mul, b.x * mul, b.y * mul);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x * mul, c.y * mul, d.x * mul, d.y * mul);
-}
-
-__device__ __forceinline__ void store1(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16_rn(x); }
-
 // Rows row0 .. row0 + 63 of one head (s rows of dh, contiguous) into a
-// padded f32 tile, each value times `mul`; rows at or past s load as zeros.
-template <int DH, typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0, int s,
+// padded tile, each value times `mul`; rows at or past s load as zeros.
+template <int DH>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, int row0, int s,
                                           float* __restrict__ dst, float mul, int tid) {
-  constexpr int kElems = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int kPerRow = DH / kElems;
+  constexpr int kPerRow = DH / 4;  // float4 loads per row
 #pragma unroll 4
   for (int e = tid; e < kBQ * kPerRow; e += kThreads) {
     const int r = e / kPerRow;
-    const int c = (e % kPerRow) * kElems;
-    float* d = dst + r * Tile<DH>::kStride + c;
+    const int c = (e % kPerRow) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < s) {
-      load16(src + static_cast<size_t>(row0 + r) * DH + c, d, mul);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kElems; i += 4) *reinterpret_cast<float4*>(d + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+      a = *reinterpret_cast<const float4*>(src + static_cast<size_t>(row0 + r) * DH + c);
+      a = make_float4(a.x * mul, a.y * mul, a.z * mul, a.w * mul);
     }
+    *reinterpret_cast<float4*>(dst + r * Tile<DH>::kStride + c) = a;
   }
 }
 
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ o, int hq, int hkv, int s, float scale, int window,
-                       float softcap) {
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int hq, int hkv, int s,
+                       float scale, int window, float softcap) {
   using Sh = Tile<DH>;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // (64, dh + 4), pre-scaled
@@ -273,61 +250,52 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const int qpos = q0 + ty + kTy * a;
     if (qpos >= s) continue;
     const float l = l_run[a] == 0.f ? 1.f : l_run[a];
-    T* orow = o + q_off + static_cast<size_t>(qpos) * DH + tx * Sh::kVec;
+    float* orow = o + q_off + static_cast<size_t>(qpos) * DH + tx * Sh::kVec;
 #pragma unroll
     for (int ch = 0; ch < Sh::kChunks; ++ch)
 #pragma unroll
       for (int e = 0; e < Sh::kVec; ++e)
-        store1(orow + ch * kTx * Sh::kVec + e, acc[a][ch * Sh::kVec + e] / l);
+        orow[ch * kTx * Sh::kVec + e] = acc[a][ch * Sh::kVec + e] / l;
   }
 }
 
-template <int DH, typename T>
+template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int s,
            float scale, int window, float softcap, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<DH, T>;
+  auto kernel = flash_attention_kernel<DH>;
   const int smem = static_cast<int>(Tile<DH>::kSmemBytes);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(b * hq, (s + kBQ - 1) / kBQ);
   const dim3 block(kTx, kTy);
-  kernel<<<grid, block, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                        static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, s,
-                                        scale, window, softcap);
+  kernel<<<grid, block, smem, stream>>>(static_cast<const float*>(q),
+                                        static_cast<const float*>(k),
+                                        static_cast<const float*>(v), static_cast<float*>(o), hq,
+                                        hkv, s, scale, window, softcap);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int s,
-              int dh, float scale, int window, float softcap, cudaStream_t stream) {
-  switch (dh) {
-    case 32: return launch<32, T>(q, k, v, o, b, hq, hkv, s, scale, window, softcap, stream);
-    case 64: return launch<64, T>(q, k, v, o, b, hq, hkv, s, scale, window, softcap, stream);
-    case 128: return launch<128, T>(q, k, v, o, b, hq, hkv, s, scale, window, softcap, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
 // q: (b, hq, s, dh); k, v: (b, hkv, s, dh); o: (b, hq, s, dh); contiguous,
-// 16-byte aligned, all of one type: dtype 0 = f32, 1 = bf16.  dh is 32, 64
-// or 128; hq a multiple of hkv; b hq < 2^31 and ceil(s / 64) <= 65535.
-// Keys after the query are masked; window > 0 masks keys window or more
-// positions behind it; softcap > 0 caps the logits.  Launches on
-// `stream`, allocates nothing, and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments outside these limits.
+// 16-byte aligned f32.  dh is 32, 64 or 128; hq a multiple of hkv; b hq <
+// 2^31 and ceil(s / 64) <= 65535.  Keys after the query are masked;
+// window > 0 masks keys window or more positions behind it; softcap > 0
+// caps the logits.  Launches on `stream`, allocates nothing, and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments outside these
+// limits.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int b,
-                                      int hq, int hkv, int s, int dh, int dtype, float scale,
-                                      int window, float softcap, cudaStream_t stream) {
+                                      int hq, int hkv, int s, int dh, float scale, int window,
+                                      float softcap, cudaStream_t stream) {
   if (b <= 0 || hq <= 0 || s <= 0) return static_cast<int>(cudaGetLastError());
   if (hkv <= 0 || hq % hkv != 0 || (s + kBQ - 1) / kBQ > 65535 ||
       static_cast<long long>(b) * hq > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0)
-    return launch_dh<float>(q, k, v, o, b, hq, hkv, s, dh, scale, window, softcap, stream);
-  if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, dh, scale, window, softcap, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (dh) {
+    case 32: return launch<32>(q, k, v, o, b, hq, hkv, s, scale, window, softcap, stream);
+    case 64: return launch<64>(q, k, v, o, b, hq, hkv, s, scale, window, softcap, stream);
+    case 128: return launch<128>(q, k, v, o, b, hq, hkv, s, scale, window, softcap, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

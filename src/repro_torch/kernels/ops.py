@@ -9,12 +9,13 @@
 * ``levscore`` — batched ridge leverage scores ``x_j^T M x_j``, one launch
   of ``csrc/levscore.cu``.
 * ``flash_attention`` — causal self-attention with GQA, a sliding window and
-  a logit soft-cap, one launch of ``csrc/flash_attention.cu``.
+  a logit soft-cap: one launch of ``csrc/flash_attention_wgmma.cu`` (bf16,
+  on the tensor cores) or of ``csrc/flash_attention.cu`` (f32).
 
 Dispatch is by the tensors' device, as in fd_ops.py: CUDA launches the
 kernel or raises, CPU runs the plain version from ``ref.py``.
-``launch_counts`` reads each kernel's launch count; ``reset_launch_counts``
-sets them to zero.
+``launch_counts`` reads each kernel's launch count (the two flash sources
+count as one kernel); ``reset_launch_counts`` sets them to zero.
 """
 from __future__ import annotations
 
@@ -44,29 +45,32 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 QUADFORM = CudaKernel("quadform.cu", "quadform_launch", [_P, _P, _P, _I, _I, _I, _I])
 LEVSCORE = CudaKernel("levscore.cu", "levscore_launch", [_P, _P, _P, _P, _I, _I, _L])
 _F = ctypes.c_float
-FLASH_ATTENTION = CudaKernel("flash_attention.cu", "flash_attention_launch",
-                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F])
-# Head dims csrc/flash_attention.cu is built for, and its dtype codes.
+_FLASH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F]
+FLASH_ATTENTION = CudaKernel("flash_attention.cu", "flash_attention_launch", _FLASH_ARGS)
+FLASH_ATTENTION_BF16 = CudaKernel("flash_attention_wgmma.cu", "flash_attention_bf16_launch",
+                                  _FLASH_ARGS)
+# Head dims both flash sources are built for, and the source of each dtype.
 FLASH_HEAD_DIMS = (32, 64, 128)
-_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FLASH_BY_DTYPE = {torch.float32: FLASH_ATTENTION, torch.bfloat16: FLASH_ATTENTION_BF16}
 # Width of the column slabs of M in csrc/levscore.cu (kCols): the kernel
 # keeps one partial per slab and query row in scratch.
 LEVSCORE_SLAB = 128
 
-# Every hand-written kernel of the port, by name.
-KERNELS = {"fd_gram": FD_GRAM, "fd_project": FD_PROJECT, "quadform": QUADFORM,
-           "levscore": LEVSCORE, "flash_attention": FLASH_ATTENTION}
+# Every hand-written kernel of the port, by name, with its sources.
+KERNELS = {"fd_gram": (FD_GRAM,), "fd_project": (FD_PROJECT,), "quadform": (QUADFORM,),
+           "levscore": (LEVSCORE,), "flash_attention": (FLASH_ATTENTION_BF16, FLASH_ATTENTION)}
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel on the card since the last reset."""
-    return {name: k.launches for name, k in KERNELS.items()}
+    return {name: sum(k.launches for k in ks) for name, ks in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for k in KERNELS.values():
-        k.launches = 0
+    for ks in KERNELS.values():
+        for k in ks:
+            k.launches = 0
 
 
 def quadform_packed(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -129,7 +133,8 @@ def flash_attention(
     """Causal self-attention with GQA: q (b, hq, s, dh), k and v (b, hkv, s, dh) -> (b, hq, s, dh).
 
     Online softmax in f32, output in q's dtype (f32 or bf16, the same for all
-    three).  The kv head of query head h is ``h // (hq // hkv)``; ``window`` > 0
+    three; bf16 runs on the tensor cores, f32 on the CUDA cores).  The kv
+    head of query head h is ``h // (hq // hkv)``; ``window`` > 0
     masks keys ``window`` or more positions behind the query, ``logit_softcap``
     > 0 caps the logits before the mask, and ``scale`` defaults to
     ``dh ** -0.5``.  Any s: the kernel masks the ragged edge, nothing is
@@ -146,7 +151,7 @@ def flash_attention(
                          f"got {tuple(k.shape)}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"GQA needs hq % hkv == 0, got {hq}, {hkv}")
-    if q.dtype not in _FLASH_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _FLASH_BY_DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     devices = {q.device, k.device, v.device}
@@ -164,14 +169,15 @@ def flash_attention(
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel():
-        FLASH_ATTENTION.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               b, hq, hkv, s, dh, _FLASH_DTYPES[q.dtype],
-                               dh**-0.5 if scale is None else scale, window, logit_softcap)
+        _FLASH_BY_DTYPE[q.dtype].launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        out.data_ptr(), b, hq, hkv, s, dh,
+                                        dh**-0.5 if scale is None else scale, window,
+                                        logit_softcap)
     return out
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (the kernel's vector loads), copied if not."""
+    """``t`` contiguous and 16-byte aligned (vector and TMA loads), copied if not."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

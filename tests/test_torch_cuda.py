@@ -110,9 +110,15 @@ def test_cuda_levscore_matches_plain(n, d):
     (1, 8, 2, 1000, 64, 256, 30.0, torch.float32),  # ragged, windowed, soft-capped
     (2, 4, 4, 200, 32, 0, 0.0, torch.float32),
     (1, 16, 8, 700, 128, 0, 0.0, torch.bfloat16),  # Qwen3-0.6B's heads, ragged s
+    (1, 8, 2, 1000, 64, 256, 30.0, torch.bfloat16),  # the wgmma kernel's masks and cap
+    (2, 4, 4, 200, 32, 0, 0.0, torch.bfloat16),  # dh = 32: the 64-byte swizzle
+    (1, 4, 2, 1, 128, 0, 0.0, torch.bfloat16),  # one row
+    (1, 4, 2, 100, 64, 0, 0.0, torch.bfloat16),  # less than one 128-row tile
+    (1, 16, 2, 4096, 128, 0, 0.0, torch.bfloat16),  # a GQA group of 8
 ])
 def test_cuda_flash_attention_matches_plain(b, hq, hkv, s, dh, window, softcap, dtype):
-    """``flash_attention`` on the card against its plain version on the same
+    """``flash_attention`` on the card (bf16: ``flash_attention_wgmma.cu``;
+    f32: ``flash_attention.cu``) against its plain version on the same
     inputs: f32 within 1e-5 of the largest output; bf16 against the plain
     version in f32 of the same bf16 inputs, each element within one bf16
     rounding of itself (2^-8 of its magnitude) plus 1e-5 of the largest
