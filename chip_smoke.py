@@ -12,12 +12,17 @@ the CUDA toolkit:
    all at once), prints each kernel's ptxas registers, spills and static
    shared memory, and counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
    load) instructions in the SASS of ``flash_attention_wgmma.cu``: both must
-   be there;
+   be there.  In the SASS of the five f32 sources it counts ``FFMA``,
+   shared loads (``LDS``, ``LDS.128``), ``cp.async`` copies (``LDGSTS``)
+   and tensor-core instructions (``HMMA``, ``HGMMA``): the f32 kernels are
+   IEEE f32 FMAs on the CUDA cores, so any of the last two fails the run;
 2. calls each kernel's wrapper at the shapes the main path gives it and
    holds the result against its plain PyTorch version on the same inputs
    (max |kernel - plain| <= KERNEL_RTOL * max |plain|) and against a second
    run of itself (bit for bit), timing the kernel, the plain version and
-   one PyTorch library call;
+   one PyTorch library call; ``quadform`` also on a ragged shape on offset
+   views (T = 3, L = 37, N = 45, d = 131: its 4-byte staging path), on
+   L = 1 and on L = 600 (15 tiles of L, more than one cluster holds);
 3. drives protocol P2 through ``DistributedMatrixTracker`` — m = 8 sites,
    d = 1024 (the ``d_model`` of Qwen3-0.6B), eps = 0.02, 64 super-steps of
    8 x 512 rows made on the card from ``--seed`` as a low-rank stream plus
@@ -29,7 +34,10 @@ the CUDA toolkit:
    2 eps ||A||_F^2`` and ``||B x||^2 <= (1 + 1e-3) ||A x||^2`` on 256 unit
    directions, and requires every kernel to have been launched by the main
    path;
-5. times the served queries over repeated calls (median and spread);
+5. times the served queries over repeated calls (median and spread), and
+   profiles one ``query_batch`` and one ``query_packed`` with
+   ``torch.profiler``: the ``quadform`` kernel's device time against the
+   call's host time;
 6. drives ``StreamingPipeline(m=8, eps=0.02)`` on the card with one matrix
    tenant (super-step P2) and one leverage tenant (super-step leverage P1,
    d = 1024): both ingest the first 16 super-steps of the same stream and
@@ -89,6 +97,10 @@ FLOPS_F32 = 67e12
 FLOPS_BF16 = 989e12
 BYTES_PER_S = 3.35e12
 
+# Clock cycles a second for torch.cuda._sleep: above the H100's 1.98 GHz
+# boost clock, so a sleep lasts at least as long as asked.
+SLEEP_CYCLES_PER_S = 2.0e9
+
 # Kernel vs plain version on the same inputs: both accumulate in IEEE f32
 # over up to 1024 terms in different orders, so they differ by rounding only.
 KERNEL_RTOL = 1e-5
@@ -117,6 +129,9 @@ PALLAS = {
     "flash_attention": ("src/repro/kernels/flash_attention.py:166",),
 }
 P2_KERNELS = ("fd_gram", "fd_project", "quadform")
+# Opcodes counted in the SASS of the f32 sources; the last two (tensor-core
+# products: mma.sync and wmma, and wgmma) must not be there.
+SASS_F32 = ("FFMA", "LDS", "LDS.128", "LDGSTS", "HMMA", "HGMMA")
 PIPELINE_KERNELS = ("fd_gram", "fd_project", "quadform", "levscore")
 SERVE_ARCH, SERVE_BATCH, SERVE_GEN, SERVE_MAX_LEN = "qwen3-0.6b", 4, 32, 4224
 CHECK_PROMPT, CHECK_STEPS = 512, 8
@@ -142,11 +157,20 @@ def bound_ms(flops: float, nbytes: float, rate: float = FLOPS_F32) -> tuple[floa
 
 
 def time_ms(torch, fn, reps: int = 20) -> float:
-    """Device time of one call: CUDA events around ``reps`` calls after warm-up."""
+    """Device time of one call: CUDA events around ``reps`` calls after warm-up.
+
+    The calls are queued behind a device-side sleep that outlasts their host
+    time, so the events time the device's work back to back, not the host's
+    launch overhead (which exceeds the work of a short kernel)."""
     for _ in range(3):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * reps * host_s, 1.0) * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -156,7 +180,8 @@ def time_ms(torch, fn, reps: int = 20) -> float:
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_attention_kernel_wgmma<128>`` from its mangled name."""
+    """``flash_attention_kernel_wgmma<128>`` (or ``quadform_kernel<1, 4>``:
+    its integer and bool template arguments) from its mangled name."""
     i = 0
     while i < len(mangled):
         m = re.match(r"\d+", mangled[i:])
@@ -164,8 +189,8 @@ def kernel_name(mangled: str) -> str:
             n, start = int(m.group()), i + len(m.group())
             name = mangled[start:start + n]
             if "kernel" in name:
-                arg = re.match(r"ILi(\d+)E", mangled[start + n:])
-                return f"{name}<{arg.group(1)}>" if arg else name
+                args = re.findall(r"IL[bi](\d+)E", mangled[start + n:])
+                return f"{name}<{', '.join(args)}>" if args else name
             i = start + n
         else:
             i += 1
@@ -194,9 +219,11 @@ def ptxas_summary(reports: dict) -> list[dict]:
     return rows
 
 
-def sass_counts(library: Path) -> dict:
-    """How many wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions the
-    SASS of a built library holds, by ``cuobjdump --dump-sass``."""
+def sass_counts(library: Path, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """How many instructions of each of ``opcodes`` (by default wgmma,
+    ``HGMMA``, and TMA loads, ``UTMALDG``) the SASS of a built library holds,
+    by ``cuobjdump --dump-sass``.  ``LDS`` counts every width of shared
+    load, ``LDS.128`` the 16-byte ones."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = shutil.which("cuobjdump") or str(Path(CUDA_HOME or "/usr/local/cuda") / "bin"
@@ -205,7 +232,8 @@ def sass_counts(library: Path) -> dict:
                          timeout=120)
     check(out.returncode == 0, f"cuobjdump failed on {library}: {out.stderr}")
     lines = out.stdout.splitlines()
-    return {op: sum(1 for line in lines if op in line) for op in ("HGMMA", "UTMALDG")}
+    return {op: sum(1 for line in lines if re.search(rf"\b{re.escape(op)}\b", line))
+            for op in opcodes}
 
 
 def make_stream(torch, seed: int, steps: int):
@@ -273,19 +301,30 @@ def kernel_cases(torch, batches, l_site: int, l_coord: int):
             flops=2.0 * t * l * l * d + t * l * d,
             nbytes=4.0 * (t * l + t * l * l + 2 * t * l * d),
         ))
+    # quadform at the two query paths' shapes, then at its edges: a ragged
+    # shape on offset views (b[1:] starts 19,388 bytes in, so the kernel
+    # stages with 4-byte copies), one row of B, and L = 600 (15 L tiles of
+    # 40 rows, more than one cluster of 8 blocks holds).
+    ragged_b = torch.randn(4, 37, 131, device=DEV, generator=gen)[1:]
+    ragged_x = torch.randn(4, 45, 131, device=DEV, generator=gen)[1:]
     for label, b, x in (("query_batch", sketches[:1], x_one[None]),
-                        ("query_packed", sketches, x_pack)):
+                        ("query_packed", sketches, x_pack),
+                        ("ragged, offset views", ragged_b, ragged_x),
+                        ("L = 1", sketches[:1, :1], x_one[None]),
+                        ("L = 600", batches[0][:600][None], x_one[None])):
         t, l, d = b.shape
         n = x.shape[1]
-        single = t == 1
+        single = label == "query_batch"
         cases.append(dict(
             kernel="quadform", shape=f"{label}: (T={t}, L={l}, N={n}, d={d})",
-            pallas=PALLAS["quadform"][0 if single else 1],
+            pallas=PALLAS["quadform"][0 if t == 1 else 1],
             run=(lambda b=b, x=x: ops.quadform(b[0], x[0])) if single
             else (lambda b=b, x=x: ops.quadform_packed(b, x)),
             plain=(lambda b=b, x=x: ref.ref_quadform(b[0], x[0])) if single
             else (lambda b=b, x=x: ref.ref_quadform_packed(b, x)),
-            library=lambda b=b, x=x: (b @ x.mT).square().sum(-2),
+            # One sketch: one 2-D product, as a caller with one sketch writes it.
+            library=(lambda b=b, x=x: (b[0] @ x[0].T).square().sum(0)) if t == 1
+            else (lambda b=b, x=x: (b @ x.mT).square().sum(-2)),
             flops=2.0 * t * l * n * d + 2.0 * t * l * n,
             nbytes=4.0 * (t * l * d + t * n * d + t * n),
         ))
@@ -411,6 +450,26 @@ def time_serving(run) -> dict:
         "query_packed": (len(run["requests"]) * N_DIRS,
                          lambda: engine.query_packed(run["requests"])),
     })
+
+
+def profile_queries(torch, run) -> dict:
+    """``torch.profiler`` over one ``query_batch`` (1024 directions) and one
+    ``query_packed`` (8 x 1024), each after one unprofiled call: the call's
+    host time against the ``quadform`` kernel's device time and all device
+    time, and the torch ops with the most host time."""
+    engine, tenant = run["engine"], run["snaps"][-1].tenant
+    out = {}
+    for name, fn in (
+        ("query_batch", lambda: engine.query_batch(run["x"], tenant=tenant, path="kernel")),
+        ("query_packed", lambda: engine.query_packed(run["requests"])),
+    ):
+        fn()
+        prof = device_profile(torch, fn)
+        kernel_ms = sum(v for k, v in prof.pop("device_ms").items() if "quadform_kernel" in k)
+        check(kernel_ms > 0, f"the profiler saw no quadform kernel in {name}")
+        prof.update(quadform_ms=kernel_ms, quadform_share_of_call=kernel_ms / prof["wall_ms"])
+        out[name] = prof
+    return out
 
 
 def _delta(after: dict, before: dict) -> dict:
@@ -799,15 +858,18 @@ def device_profile(torch, fn) -> dict:
     def self_dev(e) -> float:
         return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
 
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and self_dev(e) > 0]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA and self_dev(e) > 0]
     busy_us = sum(self_dev(e) for e in events)
     check(busy_us > 0, "the profiler saw no device time")
     top = sorted(events, key=lambda e: -self_dev(e))[:12]
+    host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 device_busy_share=busy_us / wall_us, device_launches=sum(e.count for e in events),
                 device_ms={e.key: self_dev(e) / 1e3 for e in events},
-                top_device_ms={e.key: self_dev(e) / 1e3 for e in top})
+                top_device_ms={e.key: self_dev(e) / 1e3 for e in top},
+                top_host_self_ms={e.key: e.self_cpu_time_total / 1e3 for e in host})
 
 
 def profile_serving(torch, srun, steps: int = 4) -> dict:
@@ -914,6 +976,12 @@ def main() -> int:
     sass = sass_counts(_build.library_path(ops.FLASH_ATTENTION_BF16.source))
     check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
           f"{ops.FLASH_ATTENTION_BF16.source} has no wgmma or no TMA load in its SASS: {sass}")
+    f32_sources = [k.source for ks in ops.KERNELS.values() for k in ks
+                   if k is not ops.FLASH_ATTENTION_BF16]
+    sass_f32 = {src: sass_counts(_build.library_path(src), SASS_F32) for src in f32_sources}
+    for src, counts in sass_f32.items():
+        check(counts["HMMA"] == 0 and counts["HGMMA"] == 0,
+              f"{src} holds tensor-core instructions in its SASS: {counts}")
 
     batches, ata = make_stream(torch, args.seed, args.steps)
     torch.cuda.synchronize()
@@ -925,6 +993,7 @@ def main() -> int:
     run = drive_main_path(torch, batches, args.steps)
     checks = check_main_path(torch, run, ata, args.steps)
     serving = time_serving(run)
+    query_prof = profile_queries(torch, run)
     prof = profile_ingest(torch, batches, min(8, args.steps - 1)) if args.steps > 1 else {}
 
     # Path 2: StreamingPipeline with a matrix and a leverage tenant.
@@ -967,6 +1036,7 @@ def main() -> int:
         ingest_rows_per_s=n_rows / t["ingest_s"], serving=serving,
         refresh_spectra_s=t["refresh_s"], eigh_host_share=prof.get("eigh_host_share"),
         device_busy_share=prof.get("device_busy_share"), checks=checks,
+        query_profile=query_prof,
         phase_launches=run["phase_launches"], pipeline=pipeline,
     )
     n_prompt, n_new = SERVE_BATCH * args.serve_prompt, SERVE_BATCH * (SERVE_GEN - 1)
@@ -995,7 +1065,8 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(summary=summary, kernels=kernels, profile=prof, leverage_profile=lev_prof,
-                 ptxas=ptxas), indent=1))
+                 ptxas=ptxas, sass={**sass_f32, ops.FLASH_ATTENTION_BF16.source: sass}),
+            indent=1))
     print(f"build: {build_s:.1f} s for {', '.join(sources)}")
     for row in ptxas_summary(ptxas):
         print(f"ptxas {row['source']} {row['kernel']}: {row['registers']} registers, spills "
@@ -1003,11 +1074,19 @@ def main() -> int:
               f"{row['static_smem']} B")
     print(f"SASS of {ops.FLASH_ATTENTION_BF16.source}: {sass['HGMMA']} HGMMA (wgmma), "
           f"{sass['UTMALDG']} UTMALDG (TMA loads)")
+    for src, n in sass_f32.items():
+        print(f"SASS of {src}: {n['FFMA']} FFMA, {n['LDS']} LDS ({n['LDS.128']} LDS.128), "
+              f"{n['FFMA'] / max(n['LDS'], 1):.2f} FFMA per shared load, {n['LDGSTS']} LDGSTS "
+              f"(cp.async), {n['HMMA']} HMMA, {n['HGMMA']} HGMMA")
     for c in cases:
         lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         print(f"{c['kernel']:<10} {c['shape']:<52} ms {c['ms']:.4f}  plain {c['plain_ms']:.4f}  "
               f"library {lib}  bound {c['bound_ms']:.4f} ({c['bound_by']})  "
               f"rel err {c['max_rel_err']:.2e}  err/tol {c['err_over_tol']:.3f}")
+    for name, p in query_prof.items():
+        print(f"profile of one {name}: call {p['wall_ms']:.3f} ms on the host clock, device busy "
+              f"{p['device_busy_ms']:.3f} ms, quadform kernel {p['quadform_ms']:.4f} ms "
+              f"({p['quadform_share_of_call']:.1%} of the call)")
     for tenant, comm in pipe_checks["comm"].items():
         print(f"pipeline {tenant} CommReport: {json.dumps(comm)}")
     sp = summary["serving_path"]

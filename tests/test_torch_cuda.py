@@ -57,6 +57,45 @@ def test_cuda_kernels_match_plain(t, l, n, d):
         fd_ops.fd_gram(b.mT)
 
 
+def _on_card(shape, gen, misaligned):
+    """Random f32 of ``shape`` on the card; ``misaligned`` views it 4 bytes
+    into its storage, so the kernel cannot stage it with 16-byte copies."""
+    n = int(np.prod(shape))
+    flat = torch.randn(n + 1, device="cuda", generator=gen)
+    return (flat[1:] if misaligned else flat[:n]).view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,l,n,d,misaligned", [
+    (3, 37, 45, 131, True),  # ragged, on offset views: 4-byte staging
+    (1, 0, 100, 64, False),  # an empty sketch answers zeros
+    (1, 1, 1024, 1024, False),  # one row of B
+    (2, 600, 300, 1024, False),  # 15 L tiles, more than one cluster of 8 holds
+    (2, 64, 1, 128, False),  # one direction
+    (1, 200, 1024, 1024, True),  # the serving shape, 4 bytes off alignment
+])
+def test_cuda_quadform_matches_plain(t, l, n, d, misaligned):
+    """``quadform_packed`` and ``quadform`` on the card against their plain
+    versions at the kernel's edges; two runs bit-equal (the L split is
+    reduced in cluster-rank order, with no atomics); one launch per call.
+    Needs a CUDA card and nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(t * l + n + d)
+    b = _on_card((t, l, d), gen, misaligned)
+    x = _on_card((t, n, d), gen, misaligned)
+    before = ops.launch_counts()["quadform"]
+    got, again = ops.quadform_packed(b, x), ops.quadform_packed(b, x)
+    one = ops.quadform(b[0], x[0])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["quadform"] - before == 3
+    assert torch.equal(got, again)
+    _close(got, ref.ref_quadform_packed(b, x))
+    _close(one, ref.ref_quadform(b[0], x[0]))
+    if l == 0:
+        assert not got.any()
+
+
 @pytest.mark.cuda
 def test_tracker_on_the_card_launches_the_shrink_kernels():
     """Ingest through ``DistributedMatrixTracker`` on a CUDA device runs the

@@ -7,6 +7,7 @@ themselves run only on the card: ``test_torch_cuda.py`` holds them to the
 same plain versions there.
 """
 import ast
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -118,6 +119,26 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+# The f32 kernels' sources, and what would put tensor cores in them.
+F32_SOURCES = ("fd_gram.cu", "fd_project.cu", "quadform.cu", "levscore.cu", "flash_attention.cu")
+TENSOR_CORE = re.compile(r"wgmma|mma\.sync|wmma|tf32", re.IGNORECASE)
+
+
+def _code(path: Path) -> str:
+    """A CUDA source with its comments removed."""
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", path.read_text(), flags=re.DOTALL)
+
+
+def test_f32_kernel_sources_use_no_tensor_cores():
+    """ROADMAP's numerics rule: the f32 kernels are IEEE f32 FMAs on the CUDA
+    cores, so their code names no wgmma, mma.sync, wmma or TF32 (the bf16
+    wgmma source is the control that the scan finds them)."""
+    csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
+    found = {name: sorted(set(TENSOR_CORE.findall(_code(csrc / name)))) for name in F32_SOURCES}
+    assert not any(found.values()), found
+    assert TENSOR_CORE.search(_code(csrc / "flash_attention_wgmma.cu"))
 
 
 def _imports(path: Path) -> set[str]:
