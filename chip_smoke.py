@@ -23,6 +23,9 @@ the CUDA toolkit:
    one PyTorch library call; ``quadform`` also on a ragged shape on offset
    views (T = 3, L = 37, N = 45, d = 131: its 4-byte staging path), on
    L = 1 and on L = 600 (15 tiles of L, more than one cluster holds);
+   ``fd_gram`` and ``fd_project`` also on the same ragged shape on offset
+   views, on L = 1, on L = 600 and on d < 32 (d = 20, and d = 7 off 16
+   bytes), with G required to be exactly symmetric;
 3. drives protocol P2 through ``DistributedMatrixTracker`` — m = 8 sites,
    d = 1024 (the ``d_model`` of Qwen3-0.6B), eps = 0.02, 64 super-steps of
    8 x 512 rows made on the card from ``--seed`` as a low-rank stream plus
@@ -272,26 +275,44 @@ def kernel_cases(torch, batches, l_site: int, l_coord: int):
     x_one = unit_dirs(torch, gen, N_DIRS)
     x_pack = torch.stack([unit_dirs(torch, gen, N_DIRS) for _ in range(M)])
 
-    def project_inputs(b):
+    def project_inputs(b, path):
+        """U from the shrink's eigh; w the shrink's on the path, random elsewhere
+        (at L = 1 the shrink weighs every row 0)."""
         lam, u = ref.eigh_descending(ref.ref_fd_gram_batched(b))
         w, _ = ref.shrink_weights(lam, b.shape[1] // 2)
+        if not path:
+            w = 0.5 + torch.rand(w.shape, device=DEV, generator=gen_fd)
         return w.contiguous(), u.contiguous(), b
 
     cases = []
+    # The FD kernels at the path's three shapes, then at their edges: a ragged
+    # shape on offset views (b[1:] starts 19,388 bytes in, so both kernels
+    # stage with 4-byte copies), one row, L = 600 (36 upper tiles of G, more
+    # than one cluster holds), and d < 32 on the TMA path and, off 16 bytes,
+    # the 4-byte path.
+    gen_fd = torch.Generator(device=DEV).manual_seed(5)
     for label, b in (("site shrink", site_buf), ("coordinator shrink", coord_buf),
-                     ("refresh_spectra", sketches)):
+                     ("refresh_spectra", sketches),
+                     ("ragged, offset views", torch.randn(4, 37, 131, device=DEV,
+                                                          generator=gen_fd)[1:]),
+                     ("L = 1", coord_buf[:, :1]), ("L = 600", batches[0][:600][None]),
+                     ("d = 20", site_buf[:3, :64, :20].contiguous()),
+                     ("d = 7, offset views", torch.randn(3, 50, 7, device=DEV,
+                                                         generator=gen_fd)[1:])):
         t, l, d = b.shape
+        path = label in ("site shrink", "coordinator shrink", "refresh_spectra")
         cases.append(dict(
             kernel="fd_gram", shape=f"{label}: (T={t}, L={l}, d={d})",
             pallas=PALLAS["fd_gram"][0 if t == 1 else 1],
             run=lambda b=b: fd_ops.fd_gram(b),
             plain=lambda b=b: ref.ref_fd_gram_batched(b),
             library=lambda b=b: torch.bmm(b, b.mT),
+            symmetric=True,
             # G is symmetric: the function needs l (l + 1) / 2 dot products
-            # per sketch (the kernel computes all l^2).
+            # per sketch.
             flops=2.0 * t * l * (l + 1) / 2 * d, nbytes=4.0 * (t * l * d + t * l * l),
         ))
-        w, u, _ = project_inputs(b)
+        w, u, _ = project_inputs(b, path)
         cases.append(dict(
             kernel="fd_project", shape=f"{label}: (T={t}, L={l}, d={d})",
             pallas=PALLAS["fd_project"][0 if t == 1 else 1],
@@ -341,6 +362,8 @@ def run_kernel_cases(torch, cases) -> list[dict]:
         got, again, want = c["run"](), c["run"](), c.get("want", c["plain"])()
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"{c['kernel']} {c['shape']}: two runs differ")
+        if c.get("symmetric"):
+            check(torch.equal(got, got.mT), f"{c['kernel']} {c['shape']}: G is not symmetric")
         got = got.reshape(want.shape).float()
         check(bool(torch.isfinite(got).all()), f"{c['kernel']} {c['shape']}: non-finite output")
         diff = (got - want).abs()
@@ -541,7 +564,8 @@ def check_main_path(torch, run, ata, steps: int) -> dict:
 def profile_steps(torch, step, batches) -> dict:
     """Profile ``step(rows)`` over ``batches[1:]`` after one unprofiled step:
     device busy share, the share of host time inside ``eigh`` (by input
-    shape), and device time by kernel."""
+    shape), the device time of the two shrink kernels beside it, and device
+    time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -568,8 +592,14 @@ def profile_steps(torch, step, batches) -> dict:
     eigh_us = sum(e.cpu_time_total for e in eigh)
     busy_us = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
+    # The shrink kernels' device time beside eigh's host time.
+    shrink_ms = {name: sum(v for k, v in dev.items() if f"{name}_kernel" in k) / 1e3
+                 for name in ("fd_gram", "fd_project")}
     return dict(steps=len(batches) - 1, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-                device_busy_share=busy_us / wall_us, eigh_host_share=eigh_us / wall_us,
+                device_busy_share=busy_us / wall_us, eigh_host_ms=eigh_us / 1e3,
+                eigh_host_share=eigh_us / wall_us, shrink_kernel_device_ms=shrink_ms,
+                shrink_kernel_share_of_device_busy={
+                    k: v * 1e3 / max(busy_us, 1e-30) for k, v in shrink_ms.items()},
                 eigh_calls=sum(e.count for e in eigh),
                 eigh_by_shape={str(e.input_shapes): dict(calls=e.count,
                                                          host_share=e.cpu_time_total / wall_us)
@@ -1087,6 +1117,14 @@ def main() -> int:
         print(f"profile of one {name}: call {p['wall_ms']:.3f} ms on the host clock, device busy "
               f"{p['device_busy_ms']:.3f} ms, quadform kernel {p['quadform_ms']:.4f} ms "
               f"({p['quadform_share_of_call']:.1%} of the call)")
+    for name, p in (("P2 ingest", prof), ("leverage ingest", lev_prof)):
+        if p:
+            k, share = p["shrink_kernel_device_ms"], p["shrink_kernel_share_of_device_busy"]
+            print(f"profile of {name} ({p['steps']} steps): wall {p['wall_ms']:.1f} ms, eigh "
+                  f"{p['eigh_host_ms']:.1f} ms of host time ({p['eigh_host_share']:.1%}), device "
+                  f"busy {p['device_busy_ms']:.1f} ms, fd_gram {k['fd_gram']:.3f} ms "
+                  f"({share['fd_gram']:.2%}) and fd_project {k['fd_project']:.3f} ms "
+                  f"({share['fd_project']:.2%}) of device time")
     for tenant, comm in pipe_checks["comm"].items():
         print(f"pipeline {tenant} CommReport: {json.dumps(comm)}")
     sp = summary["serving_path"]

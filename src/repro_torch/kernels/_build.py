@@ -2,10 +2,11 @@
 
 Each source in ``csrc/`` has a plain C entry point and compiles on its own
 into ``build/kernels/<stem>-<hash>.so`` at the root of the checkout, keyed
-by a hash of the source and the flags, so a changed source rebuilds and an
-unchanged one loads.  Nothing is built when a module is imported: a
-kernel builds at its first launch, or when ``build`` is called for several
-at once (one ``nvcc`` each, all started together).
+by a hash of the source, the headers in ``csrc/`` and the flags, so a
+changed source or header rebuilds and an unchanged one loads.  Nothing is
+built when a module is imported: a kernel builds at its first launch, or
+when ``build`` is called for several at once (one ``nvcc`` each, all
+started together).
 
 Launch contract of every entry point: it launches on the stream it is
 given (PyTorch's current stream), allocates nothing, and returns
@@ -39,8 +40,12 @@ NVCC_FLAGS = (
 
 
 def library_path(source: str) -> Path:
-    """Where ``source``'s shared library lives, keyed by source and flags."""
-    key = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``source``'s shared library lives, keyed by the source, every
+    header in ``csrc/`` (any source may include one) and the flags."""
+    key = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{key.hexdigest()[:16]}.so"
 
 

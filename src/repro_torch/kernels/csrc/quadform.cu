@@ -56,13 +56,7 @@
 // the same kernel stages by 4-byte cp.async copies, zero-filled past the
 // edges, into the same layout; nothing is copied to fix alignment.
 
-#include <cooperative_groups.h>
-#include <cuda.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-namespace cg = cooperative_groups;
+#include "f32_staging.cuh"
 
 namespace {
 
@@ -74,7 +68,7 @@ constexpr int kDirsPer = 8;        // directions a thread holds: tx + kTx * c
 constexpr int kTile = kRowsPer * kDirsPer;
 constexpr int kLT = kTy * kRowsPer;  // rows of B per L tile: 40
 constexpr int kNT = kTx * kDirsPer;  // directions per block: 128
-constexpr int kBK = 32;            // d slab staged per step: one 128-byte row
+constexpr int kBK = kSlab;         // d slab staged per step: one 128-byte row
 constexpr int kStages = 3;         // ring of d slabs
 constexpr int kMinBlocks = 3;      // blocks an SM holds: caps registers at 168
 constexpr int kMaxLSplit = 8;      // blocks of a cluster along L
@@ -92,87 +86,6 @@ static_assert(kTy == 8 && kTx % 8 == 0, "warps of 4 x 8 threads; rows ty + 8a sh
 static_assert(kNT <= kThreads && kStageBytes % 1024 == 0, "layout");
 static_assert(kTile * kThreads <= kStages * kStageFloats, "partial products fit in the ring");
 static_assert(kTy * kNT <= kStages * kStageFloats, "row sums fit in the ring");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Element (r, k) of a staged tile, rows of kBK floats with the 16-byte chunks
-// of row r permuted as the TMA's 128-byte swizzle lays them out: chunk c at
-// c ^ (r % 8).  Eight consecutive rows read at one k fall in distinct banks.
-__device__ __forceinline__ int swizzled(int r, int k) {
-  return r * kBK + ((((k >> 2) ^ r) & 7) << 2) + (k & 3);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of `bar` with parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 3-D tensor map (k, row, tenant) into shared memory, completing
-// on `bar`; rows and columns out of bounds arrive as zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k0, int row0,
-                                         int t, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(t), "r"(bar)
-      : "memory");
-}
-
-// 4-byte asynchronous copy global -> shared; `valid` false zero-fills.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// The path for operands TMA cannot take (d % 4 != 0 or a base pointer off
-// 16-byte alignment): the d slab [k0, k0 + kBK) of rows row0 .. row0 +
-// kRows - 1 of `src` (`rows` of them exist) by 4-byte copies, in the same
-// swizzled layout; rows past `rows` and columns past d zero-filled.
-template <int kRows>
-__device__ __forceinline__ void stage_scalar(float* dst, const float* src, int row0, int rows,
-                                             int k0, int d, int tid) {
-  static_assert(kRows * kBK % kThreads == 0, "whole copies per thread");
-#pragma unroll 1  // unrolled, the address arithmetic spills registers
-  for (int i = 0; i < kRows * kBK / kThreads; ++i) {
-    const int e = tid + i * kThreads;
-    const int r = e / kBK;
-    const int c = e % kBK;
-    const int row = row0 + r;
-    const int k = k0 + c;
-    const bool ok = row < rows && k < d;
-    cp_async4(dst + swizzled(r, c), ok ? src + static_cast<size_t>(row) * d + k : src, ok);
-  }
-}
 
 // Grid: (clusters of l_split x k_split blocks) x direction tiles along x,
 // tenants along y.  Block rank r of a cluster takes the L tiles
@@ -251,8 +164,8 @@ quadform_kernel(const __grid_constant__ CUtensorMap map_b,
         }
       } else {
         if (s < steps) {
-          stage_scalar<kLT>(stage, bt, tile * kLT, L, k0, d, tid);
-          stage_scalar<kNT>(stage + kXFloats, xt, j0, N, k0, d, tid);
+          stage_scalar<kLT, kThreads>(stage, bt, tile * kLT, L, k0, d, tid);
+          stage_scalar<kNT, kThreads>(stage + kXFloats, xt, j0, N, k0, d, tid);
         }
         cp_async_commit();  // an empty group past the end keeps the count uniform
       }
@@ -349,63 +262,16 @@ quadform_kernel(const __grid_constant__ CUtensorMap map_b,
   cluster.sync();  // no block leaves while another still reads its sums
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
-// so that the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The 3-D map (d, rows, T) of a (T, rows, d) f32 tensor, in boxes of kBK
-// columns x `box_rows` rows of one tenant, 128-byte swizzled.
-bool make_map(CUtensorMap* map, const float* ptr, int T, int rows, int d, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(T)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 4,
-                                 static_cast<cuuint64_t>(rows) * d * 4};  // bytes
-  const cuuint32_t box[3] = {kBK, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool kTma>
 cudaError_t launch(const float* b, const float* x, float* q, int T, int L, int N, int d,
                    cudaStream_t stream) {
   CUtensorMap map_b = {}, map_x = {};
-  if (kTma && !(make_map(&map_b, b, T, L, d, kLT) && make_map(&map_x, x, T, N, d, kNT)))
+  if (kTma && !(make_map(&map_b, b, T, L, d, kBK, kLT, CU_TENSOR_MAP_SWIZZLE_128B) &&
+                make_map(&map_x, x, T, N, d, kBK, kNT, CU_TENSOR_MAP_SWIZZLE_128B)))
     return cudaErrorInvalidValue;
   auto kernel = quadform_kernel<kTma>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  int device = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0;
+  const cudaError_t err = prepare(kernel, kSmemBytes, &sms);
   if (err != cudaSuccess) return err;
   // L tiles across up to 8 blocks; where that leaves SMs idle, d across
   // k_split of them as well, as far as the cluster size and the slabs allow.
@@ -418,19 +284,8 @@ cudaError_t launch(const float* b, const float* x, float* q, int T, int L, int N
   if (k_split > n_slabs) k_split = n_slabs;
   if (k_split < 1) k_split = 1;
   const int csize = l_split * static_cast<int>(k_split);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(csize * ((N + kNT - 1) / kNT), T);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, map_b, map_x, b, x, q, L, N, d, l_split);
+  return launch_clusters(kernel, dim3(csize * ((N + kNT - 1) / kNT), T), kThreads, csize,
+                         kSmemBytes, stream, map_b, map_x, b, x, q, L, N, d, l_split);
 }
 
 }  // namespace

@@ -97,6 +97,45 @@ def test_cuda_quadform_matches_plain(t, l, n, d, misaligned):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fd_gram", "fd_project"])
+@pytest.mark.parametrize("t,l,d,misaligned", [
+    (8, 400, 1024, False),  # the site shrink
+    (1, 400, 1024, False),  # the coordinator shrink: split across a cluster
+    (8, 200, 1024, False),  # refresh_spectra
+    (3, 37, 131, True),  # ragged, on offset views: 4-byte staging
+    (1, 1, 1024, False),  # one row
+    (2, 600, 1024, False),  # more tiles than one cluster holds
+    (3, 64, 20, False),  # d < 32, on the TMA path
+    (2, 50, 7, True),  # d < 32, 4-byte staging
+])
+def test_cuda_fd_kernels_match_plain(kernel, t, l, d, misaligned):
+    """``fd_gram`` and ``fd_project`` on the card against their plain versions
+    at the path's shapes and the kernels' edges: within 1e-5 of the largest
+    plain value; two runs bit-equal (the d or k split is reduced in
+    cluster-rank order, with no atomics); one launch per call; G exactly
+    symmetric.  Needs a CUDA card and nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(t * l + d)
+    b = _on_card((t, l, d), gen, misaligned)
+    if kernel == "fd_gram":
+        run, plain = (lambda: fd_ops.fd_gram(b)), (lambda: ref.ref_fd_gram_batched(b))
+    else:
+        w = torch.rand(t, l, device="cuda", generator=gen)
+        u = _on_card((t, l, l), gen, misaligned)
+        run = lambda: fd_ops.fd_project(w, u, b)  # noqa: E731
+        plain = lambda: ref.ref_fd_project_batched(w, u, b)  # noqa: E731
+    before = ops.launch_counts()[kernel]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[kernel] - before == 2
+    assert torch.equal(got, again)
+    _close(got, plain())
+    if kernel == "fd_gram":
+        assert torch.equal(got, got.mT)
+
+
+@pytest.mark.cuda
 def test_tracker_on_the_card_launches_the_shrink_kernels():
     """Ingest through ``DistributedMatrixTracker`` on a CUDA device runs the
     Gram and projection kernels, and its sketch agrees with the same tracker

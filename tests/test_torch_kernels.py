@@ -122,7 +122,8 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
 
 
 # The f32 kernels' sources, and what would put tensor cores in them.
-F32_SOURCES = ("fd_gram.cu", "fd_project.cu", "quadform.cu", "levscore.cu", "flash_attention.cu")
+F32_SOURCES = ("fd_gram.cu", "fd_project.cu", "quadform.cu", "levscore.cu", "flash_attention.cu",
+               "f32_staging.cuh")
 TENSOR_CORE = re.compile(r"wgmma|mma\.sync|wmma|tf32", re.IGNORECASE)
 
 
