@@ -52,9 +52,14 @@ the CUDA toolkit:
    oracle ``table_scores`` on the published table (tests/test_leverage.py),
    and the flush must have launched ``levscore`` and ``quadform``;
 7. holds ``levscore`` against its plain version at the path's shape (the
-   served ridge factor, N = 1024, d = 1024) and a ragged one, and times the
-   leverage ingest (share of ``eigh``), the host ``pinv``s and the served
-   subspace and score rates;
+   served ridge factor, N = 1024, d = 1024), a ragged one (N = 300,
+   d = 1000), one score query, a ragged shape on offset views (N = 37,
+   d = 131: its 4-byte staging path), d = 20, d = 7 off 16 bytes, and the
+   path's shape with a factor that is not symmetric; times the leverage
+   ingest (share of ``eigh``), the host ``pinv``s and the served subspace
+   and score rates; and profiles leverage score ``query_batch`` calls with
+   ``torch.profiler``: the ``levscore`` kernel's device time against a
+   call's host time;
 8. holds ``flash_attention`` against its plain version at the serving
    path's shape (b = 4, hq = 16, hkv = 8, s = 4096, dh = 128, bf16, causal:
    each element within one bf16 rounding of itself, ``BF16_ROUNDING``, of
@@ -488,6 +493,7 @@ def profile_queries(torch, run) -> dict:
     ):
         fn()
         prof = device_profile(torch, fn)
+        prof.pop("device_count")
         kernel_ms = sum(v for k, v in prof.pop("device_ms").items() if "quadform_kernel" in k)
         check(kernel_ms > 0, f"the profiler saw no quadform kernel in {name}")
         prof.update(quadform_ms=kernel_ms, quadform_share_of_call=kernel_ms / prof["wall_ms"])
@@ -732,7 +738,11 @@ def check_pipeline(torch, prun, batches) -> dict:
 def levscore_cases(torch, prun) -> tuple[list[dict], float]:
     """``levscore`` at the path's shape — the ridge factor of the published
     leverage table, rebuilt on the host as the engine builds it (timed:
-    one f64 ``pinv`` of d x d) — and at a ragged one."""
+    one f64 ``pinv`` of d x d) — and at its edges: a ragged shape, one score
+    query, a ragged shape on offset views (the 4-byte ``cp.async`` path),
+    d = 20, d = 7 off 16 bytes, and the path's shape with a factor that is
+    not symmetric (the path's factor is symmetric to rounding, so it cannot
+    catch a kernel that reads only one triangle of M)."""
     from repro_torch.core.leverage import decode_leverage_snapshot, ridge_factor
     from repro_torch.kernels import ops, ref
 
@@ -743,10 +753,22 @@ def levscore_cases(torch, prun) -> tuple[list[dict], float]:
     pinv_s = time.perf_counter() - t0
     m_path = torch.tensor(factor, dtype=torch.float32, device=DEV)
     x_path = torch.tensor(prun["x"]["score"], device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    m_skew = m_path + m_path.abs().mean() * torch.randn(D, D, device=DEV, generator=gen)
+
+    def offset(*shape):
+        """The second of two stacked random tensors: its base is off 16 bytes."""
+        return torch.randn(2, *shape, device=DEV, generator=gen)[1]
+
     cases = []
     for label, m, x in (("score queries", m_path, x_path),
                         ("ragged", m_path[:1000, :1000].contiguous(),
-                         x_path[:300, :1000].contiguous())):
+                         x_path[:300, :1000].contiguous()),
+                        ("one score query", m_path, x_path[:1]),
+                        ("ragged, offset views", offset(131, 131), offset(37, 131)),
+                        ("d = 20", m_path[:20, :20].contiguous(), x_path[:64, :20].contiguous()),
+                        ("d = 7, offset views", offset(7, 7), offset(50, 7)),
+                        ("score queries, factor not symmetric", m_skew, x_path)):
         n, d = x.shape
         cases.append(dict(
             kernel="levscore", shape=f"{label}: (N={n}, d={d})", pallas=PALLAS["levscore"][0],
@@ -773,6 +795,42 @@ def time_leverage_serving(prun) -> dict:
         "leverage_subspace": (N_DIRS, lambda: engine.query_batch(q_sub, tenant="leverage")),
         "leverage_score": (N_DIRS, lambda: engine.query_batch(q_score, tenant="leverage")),
     })
+
+
+def profile_leverage_scores(torch, prun, calls: int = 5) -> dict:
+    """``torch.profiler`` over ``calls`` leverage score ``query_batch`` calls
+    (1024 scores each), after one unprofiled call: the ``levscore`` kernel's
+    device time per launch against the host time per call.  The second pass
+    (``levscore_sum_kernel``) is reported apart: it is launched early as a
+    programmatic dependent, so its device time includes its wait for the
+    first kernel.  Fails unless the profiler recorded one ``levscore`` kernel
+    a call.  Runs before the long ingest profiles: after them the profiler
+    has dropped the first kernels of a short window."""
+    import numpy as np
+
+    q = np.concatenate([np.ones((N_DIRS, 1), np.float32), prun["x"]["score"]], axis=1)
+    engine = prun["pipe"].engine
+
+    def fn():
+        for _ in range(calls):
+            engine.query_batch(q, tenant="leverage")
+
+    engine.query_batch(q, tenant="leverage")
+    prof = device_profile(torch, fn)
+    dev, count = prof.pop("device_ms"), prof.pop("device_count")
+
+    def per_launch(name):
+        n = sum(c for k, c in count.items() if name in k)
+        return sum(v for k, v in dev.items() if name in k) / n if n else 0.0, n
+
+    kernel_ms, launches = per_launch("levscore_kernel")
+    check(launches == calls, f"the profiler recorded {launches} levscore kernels in {calls} "
+          f"leverage score query_batch calls")
+    call_ms = prof["wall_ms"] / calls
+    prof.update(calls=calls, call_ms=call_ms, levscore_ms=kernel_ms,
+                levscore_share_of_call=kernel_ms / call_ms,
+                levscore_sum_ms=per_launch("levscore_sum_kernel")[0])
+    return prof
 
 
 def attention_pairs(s: int, window: int) -> int:
@@ -898,6 +956,7 @@ def device_profile(torch, fn) -> dict:
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 device_busy_share=busy_us / wall_us, device_launches=sum(e.count for e in events),
                 device_ms={e.key: self_dev(e) / 1e3 for e in events},
+                device_count={e.key: e.count for e in events},
                 top_device_ms={e.key: self_dev(e) / 1e3 for e in top},
                 top_host_self_ms={e.key: e.self_cpu_time_total / 1e3 for e in host})
 
@@ -924,6 +983,8 @@ def profile_serving(torch, srun, steps: int = 4) -> dict:
         decode(0, 1)
         dec = device_profile(torch, lambda: decode(1, steps))
     flash_ms = sum(v for k, v in prefill.pop("device_ms").items() if "flash_attention_kernel" in k)
+    for p in (prefill, dec):
+        p.pop("device_count")
     dec.pop("device_ms")
     prefill.update(flash_attention_ms=flash_ms,
                    flash_attention_share=flash_ms / prefill["device_busy_ms"])
@@ -1024,7 +1085,6 @@ def main() -> int:
     checks = check_main_path(torch, run, ata, args.steps)
     serving = time_serving(run)
     query_prof = profile_queries(torch, run)
-    prof = profile_ingest(torch, batches, min(8, args.steps - 1)) if args.steps > 1 else {}
 
     # Path 2: StreamingPipeline with a matrix and a leverage tenant.
     lev_batches = batches[: args.lev_steps]
@@ -1033,6 +1093,9 @@ def main() -> int:
     lev_cases, pinv_s = levscore_cases(torch, prun)
     cases += run_kernel_cases(torch, lev_cases)
     lev_serving = time_leverage_serving(prun)
+    score_prof = profile_leverage_scores(torch, prun)
+    # The long ingest profiles come after the short ones (profile_leverage_scores).
+    prof = profile_ingest(torch, batches, min(8, args.steps - 1)) if args.steps > 1 else {}
     lev_prof = profile_leverage_ingest(torch, lev_batches, min(8, args.lev_steps - 1))
     del batches, ata, lev_batches
     torch.cuda.empty_cache()
@@ -1057,6 +1120,7 @@ def main() -> int:
         publish_s=pt["publish_s"], flush_s=pt["flush_s"], host_pinv_s=pinv_s,
         leverage_pinv_share=pinv_s / lev_host_s, leverage_eigh_host_share=lev_prof["eigh_host_share"],
         leverage_device_busy_share=lev_prof["device_busy_share"], serving=lev_serving,
+        score_profile=score_prof,
         checks=pipe_checks, launches=prun["launches"], flush_launches=prun["flush_launches"],
     )
     summary = dict(
@@ -1117,6 +1181,12 @@ def main() -> int:
         print(f"profile of one {name}: call {p['wall_ms']:.3f} ms on the host clock, device busy "
               f"{p['device_busy_ms']:.3f} ms, quadform kernel {p['quadform_ms']:.4f} ms "
               f"({p['quadform_share_of_call']:.1%} of the call)")
+    print(f"profile of {score_prof['calls']} leverage score query_batch calls: "
+          f"{score_prof['call_ms']:.3f} ms a call on the host clock, device busy "
+          f"{score_prof['device_busy_ms'] / score_prof['calls']:.3f} ms a call, levscore kernel "
+          f"{score_prof['levscore_ms']:.4f} ms a launch ({score_prof['levscore_share_of_call']:.1%} "
+          f"of a call; its second pass {score_prof['levscore_sum_ms']:.4f} ms, waiting "
+          f"included)")
     for name, p in (("P2 ingest", prof), ("leverage ingest", lev_prof)):
         if p:
             k, share = p["shrink_kernel_device_ms"], p["shrink_kernel_share_of_device_busy"]

@@ -10,7 +10,9 @@ started together).
 
 Launch contract of every entry point: it launches on the stream it is
 given (PyTorch's current stream), allocates nothing, and returns
-``cudaGetLastError()``; ``CudaKernel`` raises if that is not 0.
+``cudaGetLastError()``; ``CudaKernel`` raises if that is not 0.  A source
+may also export a host function that launches nothing and answers an
+integer, such as the scratch a launch needs (``CudaKernel.query``).
 """
 from __future__ import annotations
 
@@ -107,6 +109,7 @@ class CudaKernel:
         self.launches = 0
         self._lib = None
         self._fn = None
+        self._queries = {}
 
     def _entry(self):
         if self._fn is None:
@@ -126,3 +129,19 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol} ({self.source}) failed to launch: CUDA error {rc}")
         self.launches += 1
+
+    def query(self, device: torch.device, symbol: str, argtypes: list, *args) -> int:
+        """Call ``symbol``, a host function of the same library that launches
+        nothing, on ``device``, and return its answer; raise if it is negative
+        (minus a CUDA error).  No count moves."""
+        self._entry()
+        fn = self._queries.get(symbol)
+        if fn is None:
+            fn = getattr(self._lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_longlong
+            self._queries[symbol] = fn
+        with torch.cuda.device(device):
+            answer = fn(*args)
+        if answer < 0:
+            raise RuntimeError(f"{symbol} ({self.source}) failed: CUDA error {-answer}")
+        return answer

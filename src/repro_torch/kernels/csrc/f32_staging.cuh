@@ -1,11 +1,12 @@
 // Staging of f32 operands into shared memory, shared by the IEEE-f32 FFMA
-// kernels (quadform.cu, fd_gram.cu, fd_project.cu): shared-memory addresses,
-// the 128-byte swizzle, mbarriers, TMA box loads of 3-D (tenant-stacked)
-// tensors and the tensor maps they read, and 4-byte cp.async copies for the
-// operands TMA cannot take (a row stride or base pointer off 16 bytes).
-// Beside them, what the kernels that split a contraction across a thread
-// block cluster share: the split's size, the fixed-order sum of the
-// cluster's partials, the masked float4 store, and the cluster launch.
+// kernels (quadform.cu, fd_gram.cu, fd_project.cu, levscore.cu):
+// shared-memory addresses, the 128-byte swizzle, mbarriers, TMA box loads of
+// 3-D (tenant-stacked) tensors and the tensor maps they read, and 4-byte
+// cp.async copies for the operands TMA cannot take (a row stride or base
+// pointer off 16 bytes).  Beside them, what the kernels that
+// split a contraction share: the split's size (summed in a thread block
+// cluster, or in a second pass), the fixed-order sum of a cluster's
+// partials, the masked float4 store, and the cluster launch.
 //
 // Each source includes this header into its own translation unit and library;
 // kernels/_build.py keys every library on the source and all csrc/*.cuh, so a
@@ -210,7 +211,9 @@ cudaError_t prepare(Kernel kernel, int smem_bytes, int* sms) {
 // ceil(tiles * split / sms) blocks, and takes as long for fewer than `busy`
 // blocks as for `busy` (fewer do not keep it busy); a block costs its slabs
 // plus about 1.5 slabs of pipeline fill and reduction.  Ties go to the
-// smaller split.
+// smaller split.  With busy = 1 and `sms` the blocks the card holds at once
+// (the SMs times the blocks an SM holds), the cost counts waves of blocks,
+// for a split whose blocks need not be co-scheduled (levscore.cu).
 inline int choose_split(long long tiles, int slabs, int sms, int max_split, int busy) {
   int best = 1;
   long long best_cost = -1;

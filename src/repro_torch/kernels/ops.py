@@ -7,7 +7,8 @@
 * ``quadform`` / ``quadform_packed`` — batched ``||B x_j||^2``, one launch
   of ``csrc/quadform.cu`` for one sketch or a packed stack of them.
 * ``levscore`` — batched ridge leverage scores ``x_j^T M x_j``, one launch
-  of ``csrc/levscore.cu``.
+  of ``csrc/levscore.cu`` (its kernel and, where it splits the contraction
+  over blocks, a second pass that adds their partial scores in order).
 * ``flash_attention`` — causal self-attention with GQA, a sliding window and
   a logit soft-cap: one launch of ``csrc/flash_attention_wgmma.cu`` (bf16,
   on the tensor cores) or of ``csrc/flash_attention.cu`` (f32).
@@ -43,7 +44,7 @@ __all__ = [
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 QUADFORM = CudaKernel("quadform.cu", "quadform_launch", [_P, _P, _P, _I, _I, _I, _I])
-LEVSCORE = CudaKernel("levscore.cu", "levscore_launch", [_P, _P, _P, _P, _I, _I, _L])
+LEVSCORE = CudaKernel("levscore.cu", "levscore_launch", [_P, _P, _P, _P, _L, _I, _I])
 _F = ctypes.c_float
 _FLASH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F]
 FLASH_ATTENTION = CudaKernel("flash_attention.cu", "flash_attention_launch", _FLASH_ARGS)
@@ -52,9 +53,9 @@ FLASH_ATTENTION_BF16 = CudaKernel("flash_attention_wgmma.cu", "flash_attention_b
 # Head dims both flash sources are built for, and the source of each dtype.
 FLASH_HEAD_DIMS = (32, 64, 128)
 _FLASH_BY_DTYPE = {torch.float32: FLASH_ATTENTION, torch.bfloat16: FLASH_ATTENTION_BF16}
-# Width of the column slabs of M in csrc/levscore.cu (kCols): the kernel
-# keeps one partial per slab and query row in scratch.
-LEVSCORE_SLAB = 128
+# csrc/levscore.cu's answer to how many floats of scratch a launch needs for
+# its partial scores (0 where it does not split the contraction).
+LEVSCORE_SCRATCH = ("levscore_scratch_floats", [_P, _P, _I, _I])
 
 # Every hand-written kernel of the port, by name, with its sources.
 KERNELS = {"fd_gram": (FD_GRAM,), "fd_project": (FD_PROJECT,), "quadform": (QUADFORM,),
@@ -113,11 +114,13 @@ def levscore(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if operands_on_cpu(m=m, x=x):
         return ref.ref_levscore(m, x)
     n, d = x.shape
-    out = torch.zeros(n, dtype=torch.float32, device=x.device)
-    if n and d:
-        part = torch.empty(-(-d // LEVSCORE_SLAB) * n, dtype=torch.float32, device=x.device)
-        LEVSCORE.launch(x.device, m.data_ptr(), x.data_ptr(), out.data_ptr(), part.data_ptr(),
-                        n, d, part.numel())
+    if not (n and d):
+        return torch.zeros(n, dtype=torch.float32, device=x.device)
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    floats = LEVSCORE.query(x.device, *LEVSCORE_SCRATCH, m.data_ptr(), x.data_ptr(), n, d)
+    part = torch.empty(floats, dtype=torch.float32, device=x.device)
+    LEVSCORE.launch(x.device, m.data_ptr(), x.data_ptr(), out.data_ptr(), part.data_ptr(),
+                    part.numel(), n, d)
     return out
 
 

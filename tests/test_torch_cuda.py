@@ -161,19 +161,29 @@ def test_tracker_on_the_card_launches_the_shrink_kernels():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(1024, 1024), (37, 131), (300, 1000)])
-def test_cuda_levscore_matches_plain(n, d):
+@pytest.mark.parametrize("n,d,misaligned", [
+    (1024, 1024, False),  # the served score queries
+    (37, 131, False),
+    (300, 1000, False),  # ragged
+    (1, 1024, False),  # a single score query
+    (37, 131, True),  # ragged, on offset views: 4-byte staging
+    (64, 20, False),  # d < 32, on the TMA path
+    (50, 7, True),  # d < 32, 4-byte staging
+])
+def test_cuda_levscore_matches_plain(n, d, misaligned):
     """``levscore`` on the card against its plain version, on a factor that
     is not symmetric (the kernel contracts ``M[k, i]`` as the plain version
-    does), ragged N and d included; two runs bit-equal; one launch per
-    call.  Needs a CUDA card and nvcc: ``pytest -m cuda`` there."""
+    does), ragged N and d and offset views included; two runs bit-equal;
+    one launch per call.  Needs a CUDA card and nvcc: ``pytest -m cuda``
+    there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(n + d)
     a = torch.randn(d, d, device="cuda", generator=gen)
-    m = (a @ a.T / d + torch.eye(d, device="cuda") + 0.1 * torch.randn(
-        d, d, device="cuda", generator=gen)).contiguous()
-    x = torch.randn(n, d, device="cuda", generator=gen)
+    m = _on_card((d, d), gen, misaligned)
+    m.copy_(a @ a.T / d + torch.eye(d, device="cuda") + 0.1 * torch.randn(
+        d, d, device="cuda", generator=gen))
+    x = _on_card((n, d), gen, misaligned)
     before = ops.launch_counts()["levscore"]
     got, again = ops.levscore(m, x), ops.levscore(m, x)
     torch.cuda.synchronize()
