@@ -77,10 +77,29 @@ the CUDA toolkit:
 10. checks serving in f32 (the same model, batch 1, a 512-token prompt, 8
    decode steps): each step's logits within 2e-3 of the full forward at that
    position (``tests/test_serve.py``'s bound), and the kernel's prefill
-   within 2e-3 of the plain ``xla`` prefill.
+   within 2e-3 of the plain ``xla`` prefill;
+11. before the serving phases, packed multi-tenant ingest: two
+   ``StreamingPipeline``s (m = 8, d = 1024, eps = 0.02, publishing every 3
+   steps), each with 8 P2 matrix tenants (3 x 4096, 3 x 2048, 2 x 1024
+   rows a wave, one 2048-row tenant cold for the first wave) and 2
+   leverage P1 tenants (2048 rows each), ingest 8 waves cut from the same
+   stream, one through ``ingest_many(packed=False)`` and one through
+   ``ingest_many(packed=True)`` (the pack's site shrinks are 64 buffers of
+   400 x 1024, whose ``fd_gram`` and ``fd_project`` join the kernel cases
+   of 2).  It prints rows/s, the packed counters of ``stats()``, ``eigh``'s
+   share of host time and calls over the last two waves (``torch.profiler``)
+   and the cuSOLVER routine of one ``eigh`` of the (64, 400, 400) batch;
+   holds packed against serial (rows and ``n_seen`` exactly, live mass to
+   1e-6 relative, matrix and subspace answers on 1024 unit directions within
+   1e-5 ``||A_t||_F^2``, score answers within rtol 1e-3, atol 1e-5, the
+   ``CommReport`` totals printed side by side); saves the packed pipeline
+   while its tenants' states still sit in the pack, loads it on the card
+   (state leaves and served answers bit-identical), and after one more
+   packed wave into both holds their answers within 1e-5 ``||A_t||_F^2``.
 
 Launch counts are set to 0 just before each path (the P2 path, the
-pipeline, the serving run) and read just after; comparisons of a kernel with its plain
+pipeline, the packed pipeline, the serving run) and read just after; the
+serial pipeline of 11 runs before its window.  Comparisons of a kernel with its plain
 version are made outside those windows.  It prints the card's name and
 power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failed check exits non-zero; so does a machine
@@ -143,6 +162,17 @@ SASS_F32 = ("FFMA", "LDS", "LDS.128", "LDGSTS", "HMMA", "HGMMA")
 PIPELINE_KERNELS = ("fd_gram", "fd_project", "quadform", "levscore")
 SERVE_ARCH, SERVE_BATCH, SERVE_GEN, SERVE_MAX_LEN = "qwen3-0.6b", 4, 32, 4224
 CHECK_PROMPT, CHECK_STEPS = 512, 8
+# Path 4, packed ingest: each of two pipelines holds 8 P2 matrix tenants and
+# 2 leverage P1 tenants, fed these rows a wave (one 2048-row matrix tenant
+# cold for the first wave), PACK_WAVES waves of which the last
+# PACK_PROFILED_WAVES run under torch.profiler, then one tail wave after the
+# checkpoint.  Answers agree within PACK_TOL * ||A_t||_F^2, the reference's
+# bound (tests/test_ingest_packed.py::test_mid_pack_save_load_round_trip).
+PACK_MATRIX_ROWS = (4096, 4096, 4096, 2048, 2048, 2048, 1024, 1024)
+PACK_LEV_ROWS = (2048, 2048)
+PACK_COLD, PACK_WAVES, PACK_PROFILED_WAVES, PACK_PUBLISH_EVERY = "m3", 8, 2, 3
+PACK_TOL, PACK_FROB_RTOL = 1e-5, 1e-6
+PACK_KERNELS = ("fd_gram", "fd_project", "quadform", "levscore")
 
 
 def fail(msg: str) -> None:
@@ -275,6 +305,11 @@ def kernel_cases(torch, batches, l_site: int, l_coord: int):
     gen = torch.Generator(device=DEV).manual_seed(1)
     rows = batches[0].reshape(M, ROWS_PER_SITE, D)
     site_buf = rows[:, : 2 * l_site].contiguous()  # (8, 400, 1024): site shrink
+    # (64, 400, 1024): a packed ingest's site shrink, PACK_MATRIX tenants x M sites.
+    n_pack = len(PACK_MATRIX_ROWS) * M * 2 * l_site
+    pack_buf = torch.cat([batches[i % len(batches)]
+                          for i in range(-(-n_pack // batches[0].shape[0]))])[:n_pack]
+    pack_buf = pack_buf.reshape(len(PACK_MATRIX_ROWS) * M, 2 * l_site, D)
     coord_buf = batches[0][: 2 * l_coord][None].contiguous()  # (1, 400, 1024): coordinator shrink
     sketches = rows[:, :l_coord].contiguous()  # (8, 200, 1024): published sketches
     x_one = unit_dirs(torch, gen, N_DIRS)
@@ -297,7 +332,7 @@ def kernel_cases(torch, batches, l_site: int, l_coord: int):
     # the 4-byte path.
     gen_fd = torch.Generator(device=DEV).manual_seed(5)
     for label, b in (("site shrink", site_buf), ("coordinator shrink", coord_buf),
-                     ("refresh_spectra", sketches),
+                     ("refresh_spectra", sketches), ("packed site shrink", pack_buf),
                      ("ragged, offset views", torch.randn(4, 37, 131, device=DEV,
                                                           generator=gen_fd)[1:]),
                      ("L = 1", coord_buf[:, :1]), ("L = 600", batches[0][:600][None]),
@@ -305,7 +340,8 @@ def kernel_cases(torch, batches, l_site: int, l_coord: int):
                      ("d = 7, offset views", torch.randn(3, 50, 7, device=DEV,
                                                          generator=gen_fd)[1:])):
         t, l, d = b.shape
-        path = label in ("site shrink", "coordinator shrink", "refresh_spectra")
+        path = label in ("site shrink", "coordinator shrink", "refresh_spectra",
+                         "packed site shrink")
         cases.append(dict(
             kernel="fd_gram", shape=f"{label}: (T={t}, L={l}, d={d})",
             pallas=PALLAS["fd_gram"][0 if t == 1 else 1],
@@ -572,48 +608,73 @@ def profile_steps(torch, step, batches) -> dict:
     device busy share, the share of host time inside ``eigh`` (by input
     shape), the device time of the two shrink kernels beside it, and device
     time by kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     step(batches[0])
     torch.cuda.synchronize()
+    return profile_ingest(torch, lambda: [step(rows) for rows in batches[1:]],
+                          len(batches) - 1)
+
+
+def raw_profile(prof) -> tuple[dict, dict, dict]:
+    """Device time (µs) and launches by kernel name, and ``aten::linalg_eigh``'s
+    ``(calls, host µs)`` by input shapes, summed over the profiler's raw
+    events.  A window of ingest holds up to millions of kernel launches
+    (cuSOLVER's Jacobi ``eigh`` launches about a thousand a matrix), and
+    ``key_averages()`` builds a Python object for each.  Only device-side
+    events (kernels, copies) count as device time: a host op's device time
+    repeats its kernels' time."""
+    from torch.autograd import DeviceType
+
+    dev: dict = {}
+    count: dict = {}
+    eigh: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.is_hidden_event() or name in ("[memory]", "[OutOfMemory]"):
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            if e.duration_ns() > 0:
+                dev[name] = dev.get(name, 0.0) + e.duration_ns() / 1e3
+                count[name] = count.get(name, 0) + 1
+        elif name == "aten::linalg_eigh":
+            calls, us = eigh.get(str(e.shapes()), (0, 0.0))
+            eigh[str(e.shapes())] = (calls + 1, us + e.duration_ns() / 1e3)
+    return dev, count, eigh
+
+
+def profile_ingest(torch, fn, steps: int) -> dict:
+    """``torch.profiler`` over ``fn()``, ``steps`` ingest steps or waves:
+    device busy share, ``eigh``'s share of host time and calls by input
+    shape, and the shrink kernels' device time beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t_call = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
-        for rows in batches[1:]:
-            step(rows)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-
-    def self_dev(e) -> float:
-        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
-
-    # Device-side events only (kernels, copies): a host op's device time
-    # repeats its kernels' time.
-    dev = {e.key: self_dev(e) for e in events
-           if e.device_type == DeviceType.CUDA and self_dev(e) > 0}
-    eigh = [e for e in prof.key_averages(group_by_input_shape=True)
-            if e.key == "aten::linalg_eigh"]
-    eigh_us = sum(e.cpu_time_total for e in eigh)
+    dev, _, eigh = raw_profile(prof)
+    eigh_us = sum(us for _, us in eigh.values())
     busy_us = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
     # The shrink kernels' device time beside eigh's host time.
     shrink_ms = {name: sum(v for k, v in dev.items() if f"{name}_kernel" in k) / 1e3
                  for name in ("fd_gram", "fd_project")}
-    return dict(steps=len(batches) - 1, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+    return dict(steps=steps, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 device_busy_share=busy_us / wall_us, eigh_host_ms=eigh_us / 1e3,
                 eigh_host_share=eigh_us / wall_us, shrink_kernel_device_ms=shrink_ms,
                 shrink_kernel_share_of_device_busy={
                     k: v * 1e3 / max(busy_us, 1e-30) for k, v in shrink_ms.items()},
-                eigh_calls=sum(e.count for e in eigh),
-                eigh_by_shape={str(e.input_shapes): dict(calls=e.count,
-                                                         host_share=e.cpu_time_total / wall_us)
-                               for e in eigh},
-                top_device_ms={k: v / 1e3 for k, v in top})
+                eigh_calls=sum(calls for calls, _ in eigh.values()),
+                eigh_by_shape={k: dict(calls=calls, host_share=us / wall_us)
+                               for k, (calls, us) in eigh.items()},
+                top_device_ms={k: v / 1e3 for k, v in top},
+                profiler_s=time.perf_counter() - t_call - wall_us / 1e6)
 
 
-def profile_ingest(torch, batches, steps: int) -> dict:
+def profile_p2_ingest(torch, batches, steps: int) -> dict:
     """A short profiled P2 ingest on a fresh tracker."""
     from repro_torch.core.tracker import DistributedMatrixTracker
 
@@ -831,6 +892,274 @@ def profile_leverage_scores(torch, prun, calls: int = 5) -> dict:
                 levscore_share_of_call=kernel_ms / call_ms,
                 levscore_sum_ms=per_launch("levscore_sum_kernel")[0])
     return prof
+
+
+def stream_cutter(batches):
+    """``take(n)``: the next n rows of the stream, a view of one of its
+    batches (a batch's tail that cannot hold n is skipped); after the last
+    batch it starts again from the first."""
+    pos = [0, 0]
+
+    def take(n: int):
+        i, off = pos
+        if off + n > batches[i].shape[0]:
+            i, off = (i + 1) % len(batches), 0
+        pos[:] = [i, off + n]
+        return batches[i][off:off + n]
+
+    return take
+
+
+def pack_fleet():
+    """The packed phase's tenants and their rows a wave."""
+    sizes = {f"m{i}": n for i, n in enumerate(PACK_MATRIX_ROWS)}
+    sizes.update({f"lev{i}": n for i, n in enumerate(PACK_LEV_ROWS)})
+    return sizes
+
+
+def pack_pipeline():
+    """One pipeline of the packed phase: ``pack_fleet``'s tenants, m = 8,
+    d = 1024, eps = 0.02, publishing every PACK_PUBLISH_EVERY steps."""
+    from repro_torch.runtime import EveryKSteps, StreamingPipeline
+
+    pipe = StreamingPipeline(M, eps=EPS, policy=EveryKSteps(PACK_PUBLISH_EVERY),
+                             max_batch=4 * N_DIRS, default_deadline_s=3600.0, device=DEV)
+    for name in pack_fleet():
+        if name.startswith("lev"):
+            pipe.add_leverage_tenant(name, D, engine="shard")
+        else:
+            pipe.add_tenant(name, D, protocol="P2")
+    return pipe
+
+
+def pack_answers(pipe, x, q) -> dict:
+    """Every tenant's served answers on its latest version: ``||B x||^2`` on
+    the kernel path for matrix tenants, subspace and score answers for
+    leverage tenants."""
+    out = {}
+    for name in pipe.tenants():
+        if pipe.workload(name) == "matrix":
+            out[name] = {"matrix": pipe.engine.query_batch(x, tenant=name).estimates}
+        else:
+            out[name] = {k: pipe.engine.query_batch(q[k], tenant=name).estimates
+                         for k in ("subspace", "score")}
+    return out
+
+
+def pack_state(pipe) -> dict:
+    """Every tenant's rows, live mass, FD ``n_seen`` and ``CommReport``."""
+    out = {}
+    for name in pipe.tenants():
+        target = pipe.tracker(name)
+        st = getattr(target, "_proto", target).state
+        out[name] = dict(rows=pipe.stats(name).rows, live_frob=pipe.stats(name).live_frob,
+                         n_seen=[st.site_fd.n_seen.cpu().numpy(), st.coord_fd.n_seen.cpu().numpy()],
+                         comm=target.comm_report().as_dict())
+    return out
+
+
+def compare_answers(got: dict, want: dict, mass: dict) -> dict:
+    """Worst gap of each kind of answer: matrix and subspace answers in
+    units of ``||A_t||_F^2``, score answers over ``SCORE_ATOL + SCORE_RTOL
+    |want|`` (at most 1 passes)."""
+    import numpy as np
+
+    worst = {"matrix": 0.0, "subspace": 0.0, "score": 0.0}
+    for name, kinds in want.items():
+        for kind, w in kinds.items():
+            g = got[name][kind]
+            check(g.shape == w.shape and bool(np.isfinite(g).all()),
+                  f"{name} {kind} answers are not finite {w.shape}")
+            if kind == "score":
+                gap = float((np.abs(g - w) / (SCORE_ATOL + SCORE_RTOL * np.abs(w))).max())
+            else:
+                gap = float(np.abs(g.astype(np.float64) - w).max()) / mass[name]
+            worst[kind] = max(worst[kind], gap)
+    return worst
+
+
+def identical(a: dict, b: dict) -> bool:
+    """Bit equality of two ``pack_answers`` results."""
+    import numpy as np
+
+    return all(np.array_equal(a[n][k], b[n][k]) for n in b for k in b[n])
+
+
+def run_fleet(torch, waves, packed: bool) -> dict:
+    """A fresh ``pack_pipeline`` through ``waves``: all but the last
+    PACK_PROFILED_WAVES timed on the synchronised host clock, those under
+    ``torch.profiler``."""
+    pipe = pack_pipeline()
+    timed = waves[: len(waves) - PACK_PROFILED_WAVES]
+    torch.cuda.synchronize()
+    secs = 0.0
+    for wave in timed:
+        t0 = time.perf_counter()
+        pipe.ingest_many(wave, packed=packed)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+    rows = sum(r.shape[0] for wave in timed for _, r in wave)
+    prof = profile_ingest(
+        torch, lambda: [pipe.ingest_many(w, packed=packed) for w in waves[len(timed):]],
+        PACK_PROFILED_WAVES)
+    return dict(pipe=pipe, ingest_s=secs, rows=rows, rows_per_s=rows / secs,
+                stats=pipe.stats(), profile=prof)
+
+
+def eigh_routine(torch, g) -> dict:
+    """The device kernels of one ``torch.linalg.eigh`` of the batch ``g``,
+    and the cuSOLVER routine they belong to (the library picks it by size
+    and batch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.linalg.eigh(g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        torch.linalg.eigh(g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev, count, _ = raw_profile(prof)
+    check(sum(dev.values()) > 0, "the profiler saw no device time in eigh")
+    kernels = sorted(dev.items(), key=lambda kv: -kv[1])
+    names = " ".join(k.lower() for k, _ in kernels)
+    routine = ("syevjBatched (Jacobi, batched)" if "batch" in names and "syevj" in names
+               else "syevj (Jacobi)" if "syevj" in names
+               else "syevd (tridiagonal reduction + divide and conquer)"
+               if any(w in names for w in ("sytrd", "stedc", "ormtr", "syevd", "latrd"))
+               else "not recognised from its kernel names")
+    return dict(batch=list(g.shape), routine=routine, wall_ms=wall_ms,
+                device_busy_ms=sum(dev.values()) / 1e3, launches=sum(count.values()),
+                top_kernels_ms={k: v / 1e3 for k, v in kernels[:6]},
+                top_kernels_count={k: count[k] for k, _ in kernels[:6]})
+
+
+def drive_packed(torch, batches, l_site: int) -> dict:
+    """Path 4: two ``pack_pipeline``s fed the same waves, one through
+    ``ingest_many(packed=False)``, then — launch counts set to 0 — one
+    through ``ingest_many(packed=True)``, saved while its tenants' states
+    still sit in the pack, loaded back on the card, and one more packed wave
+    into both; the served answers of each stage."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import fd_ops, ops
+    from repro_torch.runtime import StreamingPipeline
+
+    t_phase = time.perf_counter()
+    stages: dict = {}
+
+    def lap(stage: str) -> None:
+        """Seconds since the last lap, under ``stage``."""
+        now = time.perf_counter()
+        stages[stage] = now - sum(stages.values()) - t_phase
+
+    take = stream_cutter(batches)
+    fleet = pack_fleet()
+    waves = [[(name, take(n)) for name, n in fleet.items() if not (w == 0 and name == PACK_COLD)]
+             for w in range(PACK_WAVES + 1)]
+    tail = waves.pop()
+    mass = {name: 0.0 for name in fleet}
+    for wave in waves:
+        for name, rows in wave:
+            mass[name] += float(rows.double().square().sum())
+    tail_mass = {name: mass[name] + float(rows.double().square().sum()) for name, rows in tail}
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    x = unit_dirs(torch, gen, N_DIRS).cpu().numpy()
+    q = {k: np.concatenate([np.full((N_DIRS, 1), mode, np.float32),
+                            unit_dirs(torch, gen, N_DIRS).cpu().numpy()], axis=1)
+         for k, mode in (("subspace", 0.0), ("score", 1.0))}
+    n_sites = len(PACK_MATRIX_ROWS) * M
+    per = batches[0].shape[0]
+    buf = torch.cat([take(per) for _ in range(-(-n_sites * 2 * l_site // per))])
+    routine = eigh_routine(torch, fd_ops.fd_gram(
+        buf[: n_sites * 2 * l_site].reshape(n_sites, 2 * l_site, D).contiguous()))
+    del buf
+    lap("set-up and eigh routine")
+
+    serial = run_fleet(torch, waves, packed=False)
+    lap("serial waves")
+    for name in fleet:
+        serial["pipe"].publish(name)
+    serial.update(answers=pack_answers(serial["pipe"], x, q), state=pack_state(serial["pipe"]))
+    lap("serial publish and answers")
+
+    ops.reset_launch_counts()
+    packed = run_fleet(torch, waves, packed=True)
+    lap("packed waves")
+    pipe = packed["pipe"]
+    in_pack = sum(getattr(pipe.tracker(n), "_proto", pipe.tracker(n))._pack_slot is not None
+                  for n in fleet)
+    check(in_pack == len(fleet), f"{in_pack} of {len(fleet)} tenants' states in the pack at save")
+    before = pack_answers(pipe, x, q)  # the versions published during the waves
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pipe.save(tmp)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        loaded = StreamingPipeline.load(tmp, M, device=DEV, max_batch=4 * N_DIRS,
+                                        default_deadline_s=3600.0)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    lap("save and load")
+    leaves_equal = all(
+        all(np.array_equal(a[k], b[k]) for k in b)
+        for a, b in ((loaded._tenant(n).adapter.state_payload()[0],
+                      pipe._tenant(n).adapter.state_payload()[0]) for n in fleet))
+    after_load = pack_answers(loaded, x, q)
+    for name in fleet:
+        pipe.publish(name)
+    packed.update(answers=pack_answers(pipe, x, q), state=pack_state(pipe))
+    loaded_bitwise = identical(after_load, before)
+    for p_ in (pipe, loaded):
+        p_.ingest_many(tail, packed=True)
+        for name in fleet:
+            p_.publish(name)
+    tail_answers = {"packed": pack_answers(pipe, x, q), "loaded": pack_answers(loaded, x, q)}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    lap("checks and the tail wave")
+    return dict(serial=serial, packed=packed, loaded=loaded, mass=mass, tail_mass=tail_mass,
+                eigh_routine=routine, save_s=save_s, load_s=load_s, bytes=nbytes,
+                leaves_equal=leaves_equal, loaded_bitwise=loaded_bitwise,
+                tail_answers=tail_answers, launches=launches, stages_s=stages,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def check_packed(prun) -> dict:
+    """Packed against serial for every tenant, and the checkpoint."""
+    import numpy as np
+
+    serial, packed = prun["serial"], prun["packed"]
+    for name, want in serial["state"].items():
+        got = packed["state"][name]
+        check(got["rows"] == want["rows"], f"{name}: {got['rows']} rows packed, {want['rows']} serial")
+        check(all(np.array_equal(a, b) for a, b in zip(got["n_seen"], want["n_seen"])),
+              f"{name}: n_seen differs between packed and serial ingest")
+        rel = abs(got["live_frob"] - want["live_frob"]) / max(abs(want["live_frob"]), 1e-30)
+        check(rel <= PACK_FROB_RTOL, f"{name}: live frob packed vs serial {rel:.2e} relative")
+    gaps = compare_answers(packed["answers"], serial["answers"], prun["mass"])
+    check(gaps["matrix"] <= PACK_TOL and gaps["subspace"] <= PACK_TOL and gaps["score"] <= 1.0,
+          f"packed vs serial answers: {gaps} (limits {PACK_TOL} ||A_t||_F^2, score 1)")
+    check(prun["leaves_equal"], "a state leaf differs right after the load")
+    check(prun["loaded_bitwise"], "served answers differ right after the load")
+    tail_gaps = compare_answers(prun["tail_answers"]["loaded"], prun["tail_answers"]["packed"],
+                                prun["tail_mass"])
+    check(tail_gaps["matrix"] <= PACK_TOL and tail_gaps["subspace"] <= PACK_TOL
+          and tail_gaps["score"] <= 1.0,
+          f"loaded vs packed after one more wave: {tail_gaps} (limits {PACK_TOL} ||A_t||_F^2)")
+    s = packed["stats"]
+    check(s["packed_launches"] > 0 and prun["serial"]["stats"]["packed_launches"] == 0,
+          "the packed pipeline made no packed launch, or the serial one did")
+    for name in PACK_KERNELS:
+        check(prun["launches"][name] > 0, f"kernel {name} was not launched on the packed path")
+    check(prun["launches"]["flash_attention"] == 0, "the packed path launched flash_attention")
+    comm = {n: (packed["state"][n]["comm"]["total"], serial["state"][n]["comm"]["total"])
+            for n in serial["state"]}
+    return dict(packed_vs_serial=gaps, loaded_vs_packed_after_tail=tail_gaps, comm_totals=comm,
+                comm_equal=all(a == b for a, b in comm.values()))
 
 
 def attention_pairs(s: int, window: int) -> int:
@@ -1095,9 +1424,16 @@ def main() -> int:
     lev_serving = time_leverage_serving(prun)
     score_prof = profile_leverage_scores(torch, prun)
     # The long ingest profiles come after the short ones (profile_leverage_scores).
-    prof = profile_ingest(torch, batches, min(8, args.steps - 1)) if args.steps > 1 else {}
+    prof = profile_p2_ingest(torch, batches, min(8, args.steps - 1)) if args.steps > 1 else {}
     lev_prof = profile_leverage_ingest(torch, lev_batches, min(8, args.lev_steps - 1))
+
+    # Path 4: packed multi-tenant ingest against serial, and a checkpoint.
+    pk = drive_packed(torch, batches, cfg.l_site)
+    pack_checks = check_packed(pk)
     del batches, ata, lev_batches
+    for key in ("serial", "packed"):
+        del pk[key]["pipe"]
+    del pk["loaded"]
     torch.cuda.empty_cache()
 
     # Path 3: serving Qwen3-0.6B through ServeEngine with the flash kernel.
@@ -1133,6 +1469,20 @@ def main() -> int:
         query_profile=query_prof,
         phase_launches=run["phase_launches"], pipeline=pipeline,
     )
+    pack_rows = sum(PACK_MATRIX_ROWS) + sum(PACK_LEV_ROWS)
+    summary["packed_ingest"] = dict(
+        tenants=dict(matrix_P2=len(PACK_MATRIX_ROWS), leverage_P1=len(PACK_LEV_ROWS)),
+        rows_a_wave=pack_rows, cold=PACK_COLD, waves=PACK_WAVES,
+        profiled_waves=PACK_PROFILED_WAVES, publish_every=PACK_PUBLISH_EVERY,
+        rows=PACK_WAVES * pack_rows - PACK_MATRIX_ROWS[int(PACK_COLD[1:])],
+        **{mode: dict(rows_timed=pk[mode]["rows"], ingest_s=pk[mode]["ingest_s"],
+                      rows_per_s=pk[mode]["rows_per_s"], stats=pk[mode]["stats"],
+                      profile=pk[mode]["profile"]) for mode in ("serial", "packed")},
+        eigh_routine=pk["eigh_routine"], save_s=pk["save_s"], load_s=pk["load_s"],
+        checkpoint_bytes=pk["bytes"], leaves_equal=pk["leaves_equal"],
+        answers_bit_identical_after_load=pk["loaded_bitwise"], checks=pack_checks,
+        launches=pk["launches"], phase_s=pk["phase_s"], stages_s=pk["stages_s"],
+    )
     n_prompt, n_new = SERVE_BATCH * args.serve_prompt, SERVE_BATCH * (SERVE_GEN - 1)
     summary["serving_path"] = dict(
         arch=SERVE_ARCH, layers=srun["cfg"].n_layers, dtype=srun["cfg"].dtype,
@@ -1150,7 +1500,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{main['source']}",
             replaces="; ".join(PALLAS[name]),
-            launches=run["launches"][name] + prun["launches"][name] + srun["launches"][name],
+            launches=(run["launches"][name] + prun["launches"][name] + pk["launches"][name]
+                      + srun["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], shape=main["shape"], shapes=mine,
@@ -1197,6 +1548,34 @@ def main() -> int:
                   f"({share['fd_project']:.2%}) of device time")
     for tenant, comm in pipe_checks["comm"].items():
         print(f"pipeline {tenant} CommReport: {json.dumps(comm)}")
+    pi = summary["packed_ingest"]
+    print(f"packed ingest: {len(PACK_MATRIX_ROWS)} P2 + {len(PACK_LEV_ROWS)} leverage P1 tenants "
+          f"a pipeline, {pi['rows']} rows in {PACK_WAVES} waves ({PACK_PROFILED_WAVES} profiled); "
+          f"phase {pi['phase_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in pi["stages_s"].items()))
+    for mode in ("serial", "packed"):
+        r, st, p = pi[mode], pi[mode]["stats"], pi[mode]["profile"]
+        print(f"packed ingest, {mode}: {r['rows_per_s']:.0f} rows/s over {r['rows_timed']} rows "
+              f"(synchronised host clock); packed_launches {st['packed_launches']}, restacks "
+              f"{st['restacks']}, pad_rows {st['pad_rows']}, pack_occupancy "
+              f"{st['pack_occupancy']:.4f}, shrink_launches {st['shrink_launches']}; profile of "
+              f"{p['steps']} waves: eigh {p['eigh_host_ms']:.1f} of {p['wall_ms']:.1f} ms host "
+              f"({p['eigh_host_share']:.1%}), {p['eigh_calls']} eigh calls, device busy "
+              f"{p['device_busy_share']:.1%}; the profiler's own {p['profiler_s']:.1f} s")
+    er = pi["eigh_routine"]
+    print(f"eigh of a {tuple(er['batch'])} batch: {er['routine']}; {er['device_busy_ms']:.2f} ms "
+          f"device, {er['launches']} launches; kernels {json.dumps(er['top_kernels_count'])}")
+    pc = pi["checks"]
+    print(f"packed vs serial: worst gap matrix {pc['packed_vs_serial']['matrix']:.2e} and "
+          f"subspace {pc['packed_vs_serial']['subspace']:.2e} ||A_t||_F^2 (limit {PACK_TOL}), "
+          f"score {pc['packed_vs_serial']['score']:.3f} of its tolerance; CommReport totals "
+          f"packed / serial {json.dumps(pc['comm_totals'])}")
+    print(f"checkpoint of the packed pipeline: save {pi['save_s']:.2f} s, load {pi['load_s']:.2f} "
+          f"s, {pi['checkpoint_bytes']} bytes; state leaves equal {pi['leaves_equal']}, answers "
+          f"bit-identical after the load {pi['answers_bit_identical_after_load']}; after one more "
+          f"wave matrix {pc['loaded_vs_packed_after_tail']['matrix']:.2e}, subspace "
+          f"{pc['loaded_vs_packed_after_tail']['subspace']:.2e} ||A_t||_F^2, score "
+          f"{pc['loaded_vs_packed_after_tail']['score']:.3f} of its tolerance")
     sp = summary["serving_path"]
     print(f"serving {SERVE_ARCH}: {SERVE_BATCH} x {args.serve_prompt} prompt tokens, "
           f"{SERVE_GEN} new each: prefill tokens/s {sp['prefill_tokens_per_s']}, "

@@ -6,7 +6,9 @@ kernels rewritten as hand-written CUDA C++ for Hopper (``sm_90a``).
 Core entry points:
     repro_torch.core     — FD sketch, shard protocols P1/P2, tracker
     repro_torch.query    — coordinator query serving (store -> engine)
-    repro_torch.runtime  — protocol registry and the streaming pipeline
+    repro_torch.runtime  — protocol registry, the streaming pipeline and
+                           its packed multi-tenant ingest
+    repro_torch.ckpt     — checkpoints in the reference's format
     repro_torch.kernels  — CUDA kernels, their wrappers and plain oracles
     repro_torch.models   — the decoder LM (serving path) and its configs
                            (``repro_torch.configs``)

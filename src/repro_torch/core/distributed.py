@@ -21,6 +21,12 @@ Super-step skew: delaying a send to the super-step boundary lets a site
 overshoot its threshold by at most the batch mass ``batch * beta``; choosing
 ``batch * beta << (eps/2m) * F_hat`` keeps the end-to-end guarantee intact.
 
+Every step is written once, on a *pack*: each leaf carries a leading
+tenant axis T before the site axis, and the rows arrive as (T, m * b, d).
+A serial step is the pack of one (``_on_packs``); ``make_packed_runner``
+advances T same-config tenants in one call — one batched shrink per chunk
+over all ``T * m`` site buffers — for packed multi-tenant ingest.
+
 Protocols ported so far:
 
     * ``P1`` — per-site FD, ship-the-sketch on threshold, FD-merge at C.
@@ -34,7 +40,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -63,6 +69,10 @@ __all__ = [
     "protocol_matrix",
     "protocol_frob",
     "make_protocol_runner",
+    "PACKABLE_PROTOCOLS",
+    "PackedRunner",
+    "make_packed_runner",
+    "unstack_packed",
 ]
 
 
@@ -121,18 +131,60 @@ def _row_sq(x: torch.Tensor) -> torch.Tensor:
 
 
 def _site_rows(cfg: ProtocolConfig, rows: torch.Tensor) -> torch.Tensor:
-    """A global (m * b, d) batch as (m, b, d): site i gets rows [i*b, (i+1)*b),
-    the contiguous split ``shard_map`` gives each device."""
-    if rows.ndim != 2 or rows.shape[1] != cfg.d or rows.shape[0] % cfg.m:
+    """A global (m * b, d) batch as (m, b, d), or a pack's (T, m * b, d) as
+    (T, m, b, d): site i gets rows [i*b, (i+1)*b), the contiguous split
+    ``shard_map`` gives each device."""
+    if rows.ndim not in (2, 3) or rows.shape[-1] != cfg.d or rows.shape[-2] % cfg.m:
         raise ValueError(
-            f"a super-step wants (m * b, {cfg.d}) rows with m = {cfg.m}, got {tuple(rows.shape)}"
+            f"a super-step wants (m * b, {cfg.d}) rows, or (T, m * b, {cfg.d}) for a pack, "
+            f"with m = {cfg.m}, got {tuple(rows.shape)}"
         )
-    return rows.reshape(cfg.m, -1, cfg.d)
+    return rows.reshape(*rows.shape[:-2], cfg.m, -1, cfg.d)
 
 
 def _per_site(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
-    """Broadcast an (m,) mask over a per-site leaf of shape (m, ...)."""
-    return mask.reshape(mask.shape + (1,) * (leaf.ndim - 1))
+    """Broadcast a (T, m) mask over a per-site leaf of shape (T, m, ...)."""
+    return mask.reshape(mask.shape + (1,) * (leaf.ndim - mask.ndim))
+
+
+def _tree_map(fn, state):
+    """``state``'s NamedTuple structure with ``fn`` applied to every tensor."""
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    return type(state)(*(_tree_map(fn, field) for field in state))
+
+
+def _tree_stack(states):
+    """T same-structure states as one state whose leaves are (T, ...)."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(states)
+    return type(first)(*(_tree_stack([s[i] for s in states]) for i in range(len(first))))
+
+
+def unstack_packed(stacked_state, t: int):
+    """Tenant ``t``'s state from a pack's stacked state: views, not copies.
+
+    The steps are functional (no tensor is ever written in place), so a
+    tenant's views stay valid while the pack advances to new tensors.
+    """
+    return _tree_map(lambda a: a[t], stacked_state)
+
+
+def _on_packs(step):
+    """A step written on a pack — (T, ...) state leaves, (T, m, b, d) rows —
+    taking a pack's (T, m * b, d) rows, or one tenant's unstacked state and
+    (m * b, d) rows as the pack of one."""
+
+    @functools.wraps(step)
+    def run(cfg: ProtocolConfig, st, rows: torch.Tensor):
+        cfg = cfg.resolved()
+        if rows.ndim == 3:
+            return step(cfg, st, _site_rows(cfg, rows))
+        one = _tree_map(lambda a: a[None], st)
+        return unstack_packed(step(cfg, one, _site_rows(cfg, rows)[None]), 0)
+
+    return run
 
 
 def _tile(state: fdlib.FDState, m: int) -> fdlib.FDState:
@@ -169,21 +221,23 @@ def p1_init(cfg: ProtocolConfig, device=None) -> P1State:
     )
 
 
+@_on_packs
 def p1_step(cfg: ProtocolConfig, st: P1State, rows: torch.Tensor) -> P1State:
-    """One super-step on a global (m * b, d) batch; site i takes slice i."""
-    cfg = cfg.resolved()
-    rows = _site_rows(cfg, rows)
+    """One super-step on a global (m * b, d) batch; site i takes slice i.
+
+    (A pack: (T, ...) state and (T, m * b, d) rows, each tenant on its own.)
+    """
     site_fd = fdlib.fd_update_stream(st.site_fd, rows)
-    f_i = st.f_i + _row_sq(rows).sum(-1)
+    f_i = st.f_i + _row_sq(rows).sum(-1)  # (T, m)
 
-    send = f_i >= (cfg.eps / (2 * cfg.m)) * st.f_hat  # (m,)
-    live = fdlib.fd_matrix(site_fd)  # (m, l_site, d)
-    payload = torch.where(send[:, None, None], live, 0.0)
-    coord_fd = fdlib.fd_update_stream(st.coord_fd, payload.reshape(-1, cfg.d))
-    shipped_rows = torch.where(send, (_row_sq(live) > 0).sum(-1), 0).sum()
-    n_scalar = send.sum()
+    send = f_i >= (cfg.eps / (2 * cfg.m)) * st.f_hat[:, None]  # (T, m)
+    live = fdlib.fd_matrix(site_fd)  # (T, m, l_site, d)
+    payload = torch.where(send[..., None, None], live, 0.0)
+    coord_fd = fdlib.fd_update_stream(st.coord_fd, payload.flatten(1, 2))
+    shipped_rows = torch.where(send, (_row_sq(live) > 0).sum(-1), 0).sum(-1)
+    n_scalar = send.sum(-1)
 
-    f_c = st.f_c + torch.where(send, f_i, 0.0).sum()
+    f_c = st.f_c + torch.where(send, f_i, 0.0).sum(-1)
     f_i = torch.where(send, 0.0, f_i)
     # Reset shipped sketches.
     empty = fdlib.fd_init(cfg.l_site, cfg.d, device=rows.device)
@@ -230,15 +284,17 @@ def p2_init(cfg: ProtocolConfig, device=None) -> P2State:
     )
 
 
+@_on_packs
 def p2_step(cfg: ProtocolConfig, st: P2State, rows: torch.Tensor) -> P2State:
-    """One P2 super-step on a global (m * b, d) batch; site i takes slice i."""
-    cfg = cfg.resolved()
-    rows = _site_rows(cfg, rows)
+    """One P2 super-step on a global (m * b, d) batch; site i takes slice i.
+
+    (A pack: (T, ...) state and (T, m * b, d) rows, each tenant on its own.)
+    """
     # -- scalar totals (Algorithm 5.3 first half) --
-    f_j = st.f_j + _row_sq(rows).sum(-1)
-    send_scalar = f_j >= (cfg.eps / cfg.m) * st.f_hat  # (m,)
-    f_hat = st.f_hat + torch.where(send_scalar, f_j, 0.0).sum()
-    n_sent = send_scalar.sum().to(torch.int32)
+    f_j = st.f_j + _row_sq(rows).sum(-1)  # (T, m)
+    send_scalar = f_j >= (cfg.eps / cfg.m) * st.f_hat[:, None]  # (T, m)
+    f_hat = st.f_hat + torch.where(send_scalar, f_j, 0.0).sum(-1)
+    n_sent = send_scalar.sum(-1).to(torch.int32)
     f_j = torch.where(send_scalar, 0.0, f_j)
     n_msg = st.n_msg + n_sent
     rebroadcast = n_msg >= cfg.m
@@ -250,13 +306,15 @@ def p2_step(cfg: ProtocolConfig, st: P2State, rows: torch.Tensor) -> P2State:
     # after a shrink, so each site ships (l_site, d) and the coordinator
     # absorbs m * l_site rows, in site order.
     site_fd = fdlib.fd_update_stream(st.site_fd, rows)
-    live = site_fd.buf[:, : cfg.l_site]
-    mask = _row_sq(live) >= (cfg.eps / cfg.m) * f_hat  # (m, l_site)
+    live = site_fd.buf[..., : cfg.l_site, :]  # (T, m, l_site, d)
+    mask = _row_sq(live) >= (cfg.eps / cfg.m) * f_hat[:, None, None]  # (T, m, l_site)
     payload = torch.where(mask[..., None], live, 0.0)
     kept = torch.where(mask[..., None], 0.0, live)
-    site_fd = site_fd._replace(buf=torch.cat([kept, site_fd.buf[:, cfg.l_site :]], dim=1))
-    coord_fd = fdlib.fd_update_stream(st.coord_fd, payload.reshape(-1, cfg.d))
-    n_rows = mask.sum().to(torch.int32)
+    site_fd = site_fd._replace(
+        buf=torch.cat([kept, site_fd.buf[..., cfg.l_site :, :]], dim=-2)
+    )
+    coord_fd = fdlib.fd_update_stream(st.coord_fd, payload.flatten(1, 2))
+    n_rows = mask.sum((-2, -1)).to(torch.int32)
 
     comm = CommCounters(
         scalar_msgs=st.comm.scalar_msgs + n_sent,
@@ -322,82 +380,91 @@ def lev_p1_init(cfg: ProtocolConfig, device=None) -> LevP1State:
     )
 
 
-def _lev_factor(coord_fd: fdlib.FDState, res: levlib.LevState,
+def _lev_factor(coord_b: torch.Tensor, res_rows: torch.Tensor,
                 f_hat: torch.Tensor, cfg: ProtocolConfig) -> torch.Tensor:
-    """The scoring factor ``(B^T B + lambda I)^{-1}`` (d, d) at broadcast time.
+    """The scoring factors ``(B^T B + lambda I)^{-1}``, (T, d, d), at broadcast time.
 
-    B stacks the residual FD rows and the kept reservoir rows; the ridge
-    ``lambda = eps * max(f_hat, 1)`` keeps the Gram positive definite, so
-    an f32 ``eigh``-based inverse is exact (as in the reference).
+    B stacks each tenant's residual FD rows (T, l_coord, d) and kept
+    reservoir rows (T, cap, d); the ridge ``lambda = eps * max(f_hat, 1)``
+    keeps the Gram positive definite, so an f32 ``eigh``-based inverse is
+    exact (as in the reference).  One batched ``eigh`` for all T.
     """
-    ball = torch.cat([fdlib.fd_matrix(coord_fd), res.rows]).float()
+    ball = torch.cat([coord_b, res_rows], dim=-2).float()
     lam = torch.tensor(cfg.eps, dtype=torch.float32) * f_hat.clamp_min(1.0)
-    g = ball.T @ ball + lam * torch.eye(cfg.d, dtype=torch.float32, device=ball.device)
+    eye = torch.eye(cfg.d, dtype=torch.float32, device=ball.device)
+    g = ball.mT @ ball + lam[:, None, None] * eye
     evals, evecs = torch.linalg.eigh(g)
-    return (evecs / evals.clamp_min(1e-30)[None, :]) @ evecs.T
+    return (evecs / evals.clamp_min(1e-30)[..., None, :]) @ evecs.mT
 
 
+@_on_packs
 def lev_p1_step(cfg: ProtocolConfig, st: LevP1State, rows: torch.Tensor) -> LevP1State:
-    """One leverage P1 super-step on a global (m * b, d) batch; site i takes slice i."""
-    cfg = cfg.resolved()
-    rows = _site_rows(cfg, rows).float()  # (m, b, d)
-    if rows.shape[1] == 0:  # nothing to absorb
+    """One leverage P1 super-step on a global (m * b, d) batch; site i takes slice i.
+
+    (A pack: (T, ...) state and (T, m * b, d) rows, each tenant on its own.)
+    """
+    rows = rows.float()  # (T, m, b, d)
+    if rows.shape[-2] == 0:  # nothing to absorb
         return st
+    t = rows.shape[0]
     # Score against the LAST BROADCAST factor: between counted broadcasts
     # the sites' view of the coordinator summary is frozen.
-    scores = ((rows @ st.factor) * rows).sum(-1)  # (m, b)
+    scores = ((rows @ st.factor[:, None]) * rows).sum(-1)  # (T, m, b)
     # A site forwards at most lev_cap rows per super-step: the top local
     # scorers above theta.  The k-th largest score is a value, so a stable
     # descending sort gives it whatever the order among ties.
-    k_local = min(cfg.lev_cap, scores.shape[1])
-    kth = torch.sort(scores, dim=-1, descending=True, stable=True).values[:, k_local - 1]
-    fwd = (scores >= st.theta) & (scores >= kth[:, None])  # (m, b)
-    n_fwd = fwd.sum().to(torch.int32)
+    k_local = min(cfg.lev_cap, scores.shape[-1])
+    kth = torch.sort(scores, dim=-1, descending=True, stable=True).values[..., k_local - 1]
+    fwd = (scores >= st.theta[:, None, None]) & (scores >= kth[..., None])  # (T, m, b)
+    n_fwd = fwd.sum((-2, -1)).to(torch.int32)
 
     # Masked ship of forwarded candidates, sites in order: a non-forwarded
     # lane contributes a zero-score triple, the identity of lev_merge.
-    cand_rows = torch.where(fwd[..., None], rows, 0.0).reshape(-1, cfg.d)
-    cand_scores = torch.where(fwd, scores, 0.0).reshape(-1)
+    cand_rows = torch.where(fwd[..., None], rows, 0.0).reshape(t, -1, cfg.d)
+    cand_scores = torch.where(fwd, scores, 0.0).reshape(t, -1)
     res, spilled = levlib.lev_merge_spill(
         st.res, cand_rows, cand_scores, torch.ones_like(cand_scores)
     )
     # Reservoir spill folds into the residual sketch (coordinator-local):
     # overflow raises theta, it never drops mass.
     coord_fd = fdlib.fd_update_stream(st.coord_fd, spilled)
-    spill_mass = _row_sq(spilled).sum()
+    spill_mass = _row_sq(spilled).sum(-1)  # (T,)
     overflow = spill_mass > 0.0
     # Threshold propagation: once the reservoir overflows, the entry bar
     # jumps to the smallest kept score (doubling at minimum).
-    theta = torch.where(overflow, torch.maximum(st.theta * 2.0, res.scores[-1]), st.theta)
+    theta = torch.where(overflow, torch.maximum(st.theta * 2.0, res.scores[..., -1]), st.theta)
 
     # Below-threshold rows ride the site FD sketch (zero rows are free).
     site_rows = torch.where(fwd[..., None], 0.0, rows)
     site_fd = fdlib.fd_update_stream(st.site_fd, site_rows)
-    f_i = st.f_i + _row_sq(site_rows).sum(-1)
+    f_i = st.f_i + _row_sq(site_rows).sum(-1)  # (T, m)
 
-    send = f_i >= (cfg.eps / (2 * cfg.m)) * st.f_hat  # (m,)
-    live = fdlib.fd_matrix(site_fd)  # (m, l_site, d)
-    payload = torch.where(send[:, None, None], live, 0.0)
-    coord_fd = fdlib.fd_update_stream(coord_fd, payload.reshape(-1, cfg.d))
-    shipped_rows = torch.where(send, (_row_sq(live) > 0).sum(-1), 0).sum()
-    n_scalar = send.sum()
+    send = f_i >= (cfg.eps / (2 * cfg.m)) * st.f_hat[:, None]  # (T, m)
+    live = fdlib.fd_matrix(site_fd)  # (T, m, l_site, d)
+    payload = torch.where(send[..., None, None], live, 0.0)
+    coord_fd = fdlib.fd_update_stream(coord_fd, payload.flatten(1, 2))
+    shipped_rows = torch.where(send, (_row_sq(live) > 0).sum(-1), 0).sum(-1)
+    n_scalar = send.sum(-1)
 
-    f_res = st.f_res + spill_mass + torch.where(send, f_i, 0.0).sum()
+    f_res = st.f_res + spill_mass + torch.where(send, f_i, 0.0).sum(-1)
     f_i = torch.where(send, 0.0, f_i)
     empty = fdlib.fd_init(cfg.l_site, cfg.d, device=rows.device)
     site_fd = fdlib.FDState(
         *(torch.where(_per_site(send, a), e, a) for a, e in zip(site_fd, empty))
     )
 
-    mass_kept = _row_sq(res.rows).sum()
+    mass_kept = _row_sq(res.rows).sum(-1)
     rebroadcast = (f_res + mass_kept) / st.f_hat > 1.0 + cfg.eps / 2.0
     f_hat = torch.where(rebroadcast, f_res + mass_kept, st.f_hat)
-    # The factor refreshes only when a broadcast is counted (mass growth or
-    # theta doubling); the reference computes it every step under a
-    # ``where``, here it is computed only then, for the same state.
+    # A tenant's factor refreshes only when it counts a broadcast (mass
+    # growth or theta doubling); the reference computes it every step under
+    # a ``where``, here only for those tenants, in one batched eigh.
     factor = st.factor
-    if bool(rebroadcast | overflow):
-        factor = _lev_factor(coord_fd, res, f_hat, cfg)
+    refresh = (rebroadcast | overflow).nonzero().flatten()
+    if refresh.numel():
+        new = _lev_factor(fdlib.fd_matrix(coord_fd)[refresh], res.rows[refresh],
+                          f_hat[refresh], cfg)
+        factor = new if refresh.numel() == t else factor.index_copy(0, refresh, new)
     comm = CommCounters(
         scalar_msgs=st.comm.scalar_msgs + n_scalar.to(torch.int32),
         row_msgs=st.comm.row_msgs + shipped_rows.to(torch.int32) + n_fwd,
@@ -481,3 +548,57 @@ def make_protocol_runner(protocol: str, cfg: ProtocolConfig, device=None):
         raise KeyError(f"protocol {protocol!r} is not ported (ported: {sorted(_STEPS)})")
     cfg = cfg.resolved()
     return _INITS[protocol](cfg, device), functools.partial(_STEPS[protocol], cfg)
+
+
+# Protocols safe to advance as a stacked multi-tenant pack: their step is a
+# deterministic function of (state, rows) for which appended zero rows are
+# exact no-ops on every served quantity (zero-norm rows add nothing to site
+# sketches, masses, thresholds, or candidate sets).  The reference's P3 is
+# not (its per-step random draw follows the padded row count), nor are the
+# pair-input HH and quantile protocols.
+PACKABLE_PROTOCOLS = ("P1", "P2", "LP1")
+
+
+class PackedRunner(NamedTuple):
+    """The two entry points of one packed super-step.
+
+    ``stacked(stacked_state, rows)`` advances a resident ``(T, ...)``
+    stacked state on ``(T, m * n, d)`` rows — the steady-state path:
+    leaves stay in their pack layout between waves, nothing restacks.
+    ``from_states(states_tuple, rows)`` first stacks a tuple of T
+    per-tenant states — the (re)pack path for a group's first wave or
+    after a member stepped serially.  Both return the advanced *stacked*
+    state; ``unstack_packed`` slices a tenant out only when its state is
+    read.
+    """
+
+    stacked: Callable
+    from_states: Callable
+
+
+def make_packed_runner(protocol: str, cfg: ProtocolConfig) -> PackedRunner:
+    """Return a ``PackedRunner`` advancing T tenants in one call.
+
+    T per-tenant states of one packable protocol with equal ``cfg`` stack
+    along a leading tenant axis — per-site leaves become ``(T, m, ...)``,
+    coordinator leaves ``(T, ...)``, the tenants' zero-padded row batches
+    one ``(T, m * n, d)`` block — and the protocol's step, written on that
+    axis, advances them together: each FD chunk is one shrink of all
+    ``T * m`` site buffers (one Gram launch, one batched ``eigh``, one
+    projection launch), and likewise for the T coordinator sketches.
+
+    Ragged packs zero-pad each tenant's rows *per site block* up to the
+    common ``n`` (see ``runtime.ingest_packed``); zero rows are no-ops for
+    every ``PACKABLE_PROTOCOLS`` member, so the packed advance matches T
+    serial steps on every served answer.
+    """
+    if protocol not in PACKABLE_PROTOCOLS:
+        raise ValueError(
+            f"protocol {protocol!r} is not packable; choose from {PACKABLE_PROTOCOLS}"
+        )
+    step = functools.partial(_STEPS[protocol], cfg.resolved())
+
+    def from_states(states, rows):
+        return step(_tree_stack(list(states)), rows)
+
+    return PackedRunner(stacked=step, from_states=from_states)

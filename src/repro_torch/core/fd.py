@@ -8,9 +8,9 @@ Two implementations, cross-validated in tests:
   buffer fills.  The shrink is computed with the Gram trick (``G = B B^T``
   is ``2l x 2l``; ``eigh`` on it instead of an SVD of ``2l x d``), whose
   two products map onto the CUDA kernels ``fd_gram`` / ``fd_project``.
-  Every function also takes a stacked state — ``buf`` (T, 2l, d) with
-  (T,) scalars — and advances the T sketches together, one batched shrink
-  per chunk: the protocols' site axis.
+  Every function also takes a stacked state — ``buf`` (..., 2l, d) with
+  (...) scalars — and advances the sketches together, one batched shrink
+  per chunk: the protocols' site axis, and a pack's tenant axis before it.
 
 * ``FDSketch`` — a plain-numpy, item-at-a-time oracle with the exact
   conditional-shrink semantics of the paper.
@@ -55,7 +55,7 @@ class FDState(NamedTuple):
     delta_sum: () f32 — accumulated shrink mass; instance error bound.
     n_seen:    () i32 — number of rows consumed (excludes zero padding).
 
-    A stacked state has a leading axis T on every leaf.
+    A stacked state has the same leading axes (T, or T and m) on every leaf.
     """
 
     buf: torch.Tensor
@@ -88,13 +88,16 @@ def fd_init(l: int, d: int, dtype=torch.float32, *, device=None) -> FDState:
 
 
 def fd_shrink(buf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One FD shrink of a full ``(2l, d)`` buffer, or a stacked ``(T, 2l, d)`` one.
+    """One FD shrink of a full ``(2l, d)`` buffer, or of a stack of them with
+    any number of leading axes (``(T, 2l, d)``, a pack's ``(T, m, 2l, d)``).
 
     Returns ``(new_buf, delta)`` where ``new_buf`` has at most ``l`` non-zero
     rows (sorted by decreasing singular value) and ``delta`` is the shrink
     threshold ``sigma_l^2`` removed from every retained direction.  On a
     CUDA buffer the Gram and projection products run the CUDA kernels; on
     a CPU buffer, their plain PyTorch versions (``kernels.ops.fd_shrink``).
+    All the stacked buffers go through one launch of each kernel and one
+    batched ``eigh``.
     """
     new_buf, delta = ops.fd_shrink(buf.float().contiguous())
     return new_buf.to(buf.dtype), delta
@@ -124,7 +127,7 @@ def fd_update(state: FDState, chunk: torch.Tensor) -> FDState:
 
 
 def fd_update_stream(state: FDState, rows: torch.Tensor) -> FDState:
-    """Absorb ``(n, d)`` rows (``(T, n, d)`` for a stacked state) as l-row
+    """Absorb ``(n, d)`` rows (``(..., n, d)`` for a stacked state) as l-row
     chunks, n padded up to a multiple of l with zero rows."""
     l = state.l
     n = rows.shape[-2]

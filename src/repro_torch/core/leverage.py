@@ -330,26 +330,28 @@ def lev_merge_spill(
     bit-identical.  The second return value is the ``(n_cand + cap, d)``
     tensor of *dropped* rows (zero rows elsewhere) — the caller folds them
     into its residual sketch so reservoir overflow never loses mass.
+    Leading axes (a pack's tenants) are batch axes: each reservoir merges
+    and sorts its own candidates.
     """
-    cap = state.scores.shape[0]
-    all_rows = torch.cat([state.rows, rows.float()])
-    all_scores = torch.cat([state.scores, scores.float()])
-    all_weights = torch.cat([state.weights, weights.float()])
-    order = torch.sort(all_scores, descending=True, stable=True).indices
-    top_idx = order[:cap]
-    keep_mask = torch.zeros(all_scores.shape[0], dtype=torch.bool, device=all_scores.device)
-    keep_mask[top_idx] = True
-    top_scores = all_scores[top_idx]
+    cap = state.scores.shape[-1]
+    all_rows = torch.cat([state.rows, rows.float()], dim=-2)
+    all_scores = torch.cat([state.scores, scores.float()], dim=-1)
+    all_weights = torch.cat([state.weights, weights.float()], dim=-1)
+    order = torch.sort(all_scores, dim=-1, descending=True, stable=True).indices
+    top_idx = order[..., :cap]
+    keep_mask = torch.zeros_like(all_scores, dtype=torch.bool).scatter(-1, top_idx, True)
+    top_scores = all_scores.gather(-1, top_idx)
+    top_rows = all_rows.gather(-2, top_idx[..., None].expand(*top_idx.shape, all_rows.shape[-1]))
     # Pad slots that survived carry stale row/weight data only if a
     # zero-score candidate had non-zero payload; mask them out for the
     # all-pad == identity property.
     live = top_scores > 0.0
     new = LevState(
-        rows=torch.where(live[:, None], all_rows[top_idx], 0.0),
+        rows=torch.where(live[..., None], top_rows, 0.0),
         scores=top_scores,
-        weights=torch.where(live, all_weights[top_idx], 0.0),
+        weights=torch.where(live, all_weights.gather(-1, top_idx), 0.0),
     )
-    spilled = torch.where((~keep_mask[:, None]) & (all_scores[:, None] > 0.0), all_rows, 0.0)
+    spilled = torch.where((~keep_mask[..., None]) & (all_scores[..., None] > 0.0), all_rows, 0.0)
     return new, spilled
 
 

@@ -186,21 +186,21 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def fd_shrink(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched FD shrink: (T, 2l, d) -> (B' (T, 2l, d), delta (T,)).
+    """Batched FD shrink: (..., 2l, d) -> (B' (..., 2l, d), delta (...)).
 
-    One Gram launch, ONE batched ``eigh`` over the (T, 2l, 2l) Grams, one
-    projection launch with the ``diag(w)`` rescale in its epilogue.
-    Numerics match ``ref.ref_fd_shrink``; also accepts an unstacked (2l, d)
-    buffer and returns ((2l, d), ()).
+    Any number of leading batch axes — one buffer (2l, d), T tenants' or
+    m sites' (T, 2l, d), a pack's site buffers (T, m, 2l, d) — flatten
+    into one contiguous (B, 2l, d) batch: one Gram launch, ONE batched
+    ``eigh`` over the (B, 2l, 2l) Grams, one projection launch with the
+    ``diag(w)`` rescale in its epilogue; the axes are restored after.
+    Numerics match ``ref.ref_fd_shrink``.
     """
-    squeeze = b.ndim == 2
-    bs = b[None] if squeeze else b
+    lead, (l2, d) = b.shape[:-2], b.shape[-2:]
+    bs = b.reshape(-1, l2, d)
     lam, u = ref.eigh_descending(fd_gram(bs))
-    w, delta = ref.shrink_weights(lam, bs.shape[1] // 2)
+    w, delta = ref.shrink_weights(lam, l2 // 2)
     out = fd_project(w.contiguous(), u.contiguous(), bs)
-    if squeeze:
-        return out[0], delta[0]
-    return out, delta
+    return out.reshape(*lead, l2, d), delta.reshape(lead)
 
 
 def fd_spectra(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -81,15 +81,19 @@ def spectra_weights(lam: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def eigh_descending(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``eigh`` of stacked Grams, eigenvalues descending and clamped at 0.
 
-    The f32 solver can fail to converge on a Gram of a mostly-zero buffer
-    whose few live entries span many orders of magnitude (MKL's ``ssyevd``
-    does on such a 40 x 40 Gram from a leverage coordinator fold, where
-    the reference's solver converges); such a batch is solved in f64 and
-    rounded back to f32.
+    The f32 solver can fail on a Gram of a mostly-zero buffer whose few
+    live entries span many orders of magnitude, where the reference's
+    solver does not: MKL's ``ssyevd`` raises on such a 40 x 40 Gram from a
+    leverage coordinator fold, and returns NaNs without raising on one
+    from a P1 coordinator shrink (4 live rows of 40).  Such a batch is
+    solved in f64 and rounded back to f32.
     """
     try:
         lam, u = torch.linalg.eigh(g)  # ascending
+        solved = bool(torch.isfinite(lam).all() & torch.isfinite(u).all())
     except torch.linalg.LinAlgError:
+        solved = False
+    if not solved:
         lam, u = (t.to(g.dtype) for t in torch.linalg.eigh(g.double()))
     return lam.flip(-1).clamp_min(0.0), u.flip(-1)
 

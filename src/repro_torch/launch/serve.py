@@ -39,7 +39,10 @@ def main(argv: list[str] | None = None, clock: Callable[[], float] = time.time) 
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
     if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoints are not ported yet (ROADMAP item 7)")
+        # The reference restores a training run's state; its template comes
+        # with the training stack.
+        raise NotImplementedError("--ckpt-dir restores a training run's state, which waits "
+                                  "for the training stack (ROADMAP item 12)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -15,9 +15,9 @@ queries against a pinned version are trivially cacheable.
 ``retain`` bounds memory: only the newest ``retain`` versions per tenant
 are kept (0 = unbounded).  All operations are thread-safe.
 
-``state_tree``/``from_state_tree`` give the store as checkpoint halves;
-the checkpoint writer (``save``/``load`` in the reference) is not ported
-yet, so this copy stops there.
+``state_tree``/``from_state_tree`` give the store as checkpoint halves,
+and ``save``/``load`` write and read them through ``repro_torch.ckpt`` in
+the reference's format.
 """
 from __future__ import annotations
 
@@ -380,3 +380,35 @@ class SketchStore:
                 store._snaps.setdefault(snap.tenant, {})[snap.version] = snap
             store._next_version = {t: int(v) for t, v in extra["next_version"].items()}
         return store
+
+    def save(self, directory: str, *, step: int = 0) -> str:
+        """Persist every tenant's versions atomically; returns the path.
+
+        Matrices become checkpoint leaves (hashed, compressed); everything
+        else — tenant names, version numbers, certificates, metadata — rides
+        the manifest's ``extra`` so ``load`` can rebuild the exact store.
+        """
+        from repro_torch import ckpt
+
+        tree, extra = self.state_tree()
+        return ckpt.save(directory, step, tree, extra=extra)
+
+    @classmethod
+    def load(cls, directory: str, *, step: int | None = None) -> "SketchStore":
+        """Rebuild a store from ``save`` output (latest step by default).
+
+        Snapshots are host numpy arrays, so the leaves are read to the CPU.
+        """
+        from repro_torch import ckpt
+
+        if step is None:
+            step = ckpt.latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no sketch-store checkpoint under {directory!r}")
+        extra = ckpt.read_extra(directory, step)
+        if extra.get("kind") != "sketch_store":
+            raise ValueError(f"checkpoint at {directory!r} step {step} is not a sketch store")
+        # restore() checks leaf shapes against a template; the store's tree
+        # structure varies per save, so the template comes from extra.
+        tree, _ = ckpt.restore(directory, step, cls.state_template(extra), device="cpu")
+        return cls.from_state_tree(tree, extra)

@@ -7,8 +7,11 @@ Ported so far:
                   engines of the matrix and leverage kinds.
   * policies.py — publish policies and tenant quotas (a copy).
   * pipeline.py — ``StreamingPipeline``: matrix and leverage tenants'
-                  ingest → publish → packed serve.
+                  ingest → publish → packed serve, checkpoints.
+  * ingest_packed.py — stacked multi-tenant ingest: same-shape super-step
+                  tenants advance in one step (``ingest_many``).
 """
+from repro_torch.runtime.ingest_packed import ingest_packed, pack_signature
 from repro_torch.runtime.pipeline import StreamingPipeline, TenantStats
 from repro_torch.runtime.policies import (
     EveryKSteps,
@@ -43,6 +46,8 @@ __all__ = [
     "TenantStats",
     "create_protocol",
     "get_spec",
+    "ingest_packed",
+    "pack_signature",
     "protocol_names",
     "register_protocol",
     "specs",

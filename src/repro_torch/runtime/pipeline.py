@@ -35,15 +35,21 @@ cooperatively (every ``ingest`` pumps ``poll()``) or by a ``ServicePump``
 background thread the pipeline owns — pass ``pump_interval_s`` (or call
 ``start_pump``); ``close()`` (or the context manager) stops it.
 
+``ingest_many`` drives many tenants in waves: same-config super-step
+tenants advance together in one stacked step (``runtime.ingest_packed``).
+``save``/``load`` persist the *whole* pipeline — published store versions
+and every tenant's live protocol state — through ``repro_torch.ckpt`` in
+the reference's format, so a restarted coordinator resumes ingest
+mid-stream and answers identically, and each package loads the other's
+checkpoints; ``export_tenant``/``import_tenant`` move one tenant.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: heavy-hitter and quantile tenants and their lookups
-(item 8), windowed tenants (item 10), packed multi-tenant ingest
-``ingest_many`` (item 9), and checkpoints ``save``/``load``/
-``export_tenant``/``import_tenant``/``read_tenant_export`` (item 7).
+(item 8) and windowed tenants (item 10).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Iterable, NamedTuple
 
 import numpy as np
 
@@ -51,7 +57,13 @@ from repro_torch import resolve_device
 from repro_torch.obs import Observability, rehome_families
 from repro_torch.query import QueryEngine, SketchStore
 from repro_torch.query.service import PackedQueryService, QueryTicket, ServicePump
-from repro_torch.runtime.policies import EveryKSteps, PublishPolicy, TenantQuota
+from repro_torch.runtime.policies import (
+    EveryKSteps,
+    PublishPolicy,
+    TenantQuota,
+    policy_from_config,
+    policy_to_config,
+)
 
 __all__ = ["StreamingPipeline", "TenantStats"]
 
@@ -114,6 +126,19 @@ class _MatrixAdapter:
         """Protocol messages spent, in the paper's units."""
         return self.tracker.comm_report()
 
+    def state_payload(self):
+        """Live protocol state as ``(arrays, meta)`` checkpoint halves."""
+        return self.tracker.state_payload()
+
+    def restore_payload(self, arrays, meta) -> None:
+        """Restore a ``state_payload`` capture bit-identically."""
+        self.tracker.restore_payload(arrays, meta)
+
+    def ctor_meta(self) -> dict:
+        """Construction parameters ``load`` needs to rebuild the tenant."""
+        cfg = self.tracker.cfg
+        return {"protocol": self.tracker.protocol, "d": cfg.d, "eps": cfg.eps}
+
     @property
     def target(self):
         """The wrapped tracker (what ``pipeline.tracker()`` returns)."""
@@ -131,8 +156,9 @@ class _RegistryAdapter:
 
     workload = ""  # set by subclasses; also the snapshot meta tag
 
-    def __init__(self, proto):
+    def __init__(self, proto, ctor_kw: dict):
         self.proto = proto
+        self._ctor_kw = ctor_kw
 
     def ingest(self, rows, ts: float | None = None) -> None:
         """Advance the protocol one step on an ingest batch."""
@@ -178,6 +204,23 @@ class _RegistryAdapter:
         """Protocol messages spent, in the paper's units."""
         return self.proto.comm_report()
 
+    def state_payload(self):
+        """Live protocol state as ``(arrays, meta)`` checkpoint halves."""
+        return self.proto.state_payload()
+
+    def restore_payload(self, arrays, meta) -> None:
+        """Restore a ``state_payload`` capture bit-identically."""
+        self.proto.restore_payload(arrays, meta)
+
+    def ctor_meta(self) -> dict:
+        """Construction parameters ``load`` needs to rebuild the tenant."""
+        return {
+            "protocol": self.proto.name,
+            "engine": self.proto.engine,
+            "eps": self.proto.eps,
+            "kw": dict(self._ctor_kw),
+        }
+
     @property
     def target(self):
         """The wrapped protocol (what ``pipeline.tracker()`` returns)."""
@@ -215,6 +258,10 @@ class _LeverageAdapter(_RegistryAdapter):
             published_at=published_at,
         )
 
+    def ctor_meta(self) -> dict:
+        """Construction parameters ``load`` needs to rebuild the tenant."""
+        return {**super().ctor_meta(), "d": self.proto.d}
+
 
 class _Tenant:
     __slots__ = ("adapter", "policy", "quota", "steps", "steps_since_publish",
@@ -238,15 +285,25 @@ class StreamingPipeline:
     """Owns trackers, store, engine, and packed service for many tenants."""
 
     # Ingest-side counters (see stats() with no tenant): every one is
-    # lifetime-cumulative; ingest_s is wall time inside protocol steps,
-    # excluding publishes and query pumping.  Stored as
-    # ``repro_ingest_<key>_total`` counters in the obs registry (ingest_s as
-    # ``repro_ingest_seconds_total``).  The reference's packed-ingest and
-    # late-row counters arrive with packed ingest and windows.
+    # lifetime-cumulative; ingest_s is wall time inside protocol steps
+    # (packed launches + serial steps), excluding publishes and query
+    # pumping.  Stored as ``repro_ingest_<key>_total`` counters in the obs
+    # registry (ingest_s as ``repro_ingest_seconds_total``).  The
+    # reference's late-row counter arrives with windows.
     _INGEST_KEYS = (
         ("rows", "Real stream rows / weighted items absorbed."),
         ("batches", "Ingest batches absorbed (serial + packed slices)."),
+        ("waves", "ingest_many waves driven."),
+        ("packed_launches", "Stacked super-step launches."),
+        ("packed_tenants", "Tenant-batches that rode a packed launch."),
+        ("packed_rows", "Real rows absorbed via packed launches."),
+        ("pad_rows", "Zero-filled slots added while packing."),
         ("serial_steps", "Per-tenant serial protocol steps."),
+        ("retraces", "Packed launch shapes seen for the first time."),
+        # restacks: packed launches that could not reuse a resident stacked
+        # state (first wave of a group, or a member stepped / restored out
+        # of band since the last wave).
+        ("restacks", "Packed launches that had to restack member states."),
         ("ingest_s", "Wall time inside protocol steps."),
     )
 
@@ -450,11 +507,17 @@ class StreamingPipeline:
                 f"unknown leverage engine {engine!r}; choose 'event' or 'shard'"
             )
         eps = self.default_eps if eps is None else eps
-        kw.setdefault("m", self.m)
+        # The recorded kw is what ``load`` passes back, as the reference
+        # records it: the event engine's m, not the super-step engine's
+        # (whose m is the pipeline's, as the reference's is its mesh's).
+        kw = dict(kw)
+        if engine == "event":
+            kw.setdefault("m", self.m)
         proto = create_protocol(
-            protocol, engine=engine, kind="leverage", d=d, eps=eps, device=self.device, **kw,
+            protocol, engine=engine, kind="leverage", d=d, eps=eps, device=self.device,
+            **{"m": self.m, **kw},
         )
-        self._register(tenant, _LeverageAdapter(proto), policy, quota)
+        self._register(tenant, _LeverageAdapter(proto, kw), policy, quota)
         return proto
 
     def add_hh_tenant(self, tenant: str, **kw):
@@ -469,18 +532,178 @@ class StreamingPipeline:
         """Windowed tenants wait for the window layer."""
         _not_ported("add_windowed_tenant (windowed tenants)", 10)
 
+    def _add_from_ctor(
+        self,
+        tenant: str,
+        workload: str,
+        ctor: dict,
+        policy: PublishPolicy | None,
+        quota: TenantQuota | None,
+    ) -> None:
+        """Rebuild one tenant from its recorded ``ctor_meta`` (load/import)."""
+        if workload == "leverage":
+            self.add_leverage_tenant(
+                tenant,
+                int(ctor["d"]),
+                eps=float(ctor["eps"]),
+                protocol=str(ctor["protocol"]),
+                engine=str(ctor["engine"]),
+                policy=policy,
+                quota=quota,
+                **ctor["kw"],
+            )
+        elif workload == "matrix":
+            self.add_tenant(
+                tenant,
+                int(ctor["d"]),
+                eps=float(ctor["eps"]),
+                protocol=str(ctor["protocol"]),
+                policy=policy,
+                quota=quota,
+            )
+        elif workload in ("hh", "quantile"):
+            _not_ported(f"{workload} tenants", 8)
+        elif workload == "windowed":
+            _not_ported("windowed tenants", 10)
+        else:
+            raise ValueError(f"unknown tenant workload {workload!r}")
+
+    def _tenant_record(self, t: _Tenant) -> dict:
+        """The manifest record of one tenant: recipe, policy, counters."""
+        return {
+            "workload": t.adapter.workload,
+            "ctor": t.adapter.ctor_meta(),
+            "policy": policy_to_config(t.policy),
+            "quota": None if t.quota is None else list(t.quota),
+            "steps": t.steps,
+            "steps_since_publish": t.steps_since_publish,
+            "publishes": t.publishes,
+            "published_frob": t.published_frob,
+            "latest_version": t.latest_version,
+        }
+
+    def _install_tenant(self, name: str, record: dict, arrays: dict, proto_meta: dict) -> None:
+        """Register a tenant from its record and restore its state and counters."""
+        policy = policy_from_config(record["policy"])
+        quota = None if record["quota"] is None else TenantQuota(*record["quota"])
+        self._add_from_ctor(name, record["workload"], record["ctor"], policy, quota)
+        t = self._tenants[name]
+        t.adapter.restore_payload({k: np.asarray(v) for k, v in arrays.items()}, proto_meta)
+        t.steps = int(record["steps"])
+        t.steps_since_publish = int(record["steps_since_publish"])
+        t.publishes = int(record["publishes"])
+        t.published_frob = (
+            None if record["published_frob"] is None else float(record["published_frob"])
+        )
+        t.latest_version = (
+            None if record["latest_version"] is None else int(record["latest_version"])
+        )
+
+    # -- tenant migration -----------------------------------------------------
+
     def export_tenant(self, tenant: str) -> dict:
-        """Tenant export rides the checkpoint format."""
-        _not_ported("export_tenant", 7)
+        """Capture one live tenant as a portable payload (cluster rebalance).
+
+        The payload holds everything ``import_tenant`` on *another*
+        pipeline needs to continue the tenant bit-identically: the
+        construction recipe (``ctor_meta``), live protocol state
+        (``state_payload`` — the same halves the checkpoint writes),
+        publish policy/quota/counters, and the tenant's published store
+        versions (``SketchStore.export_tenant``, version numbers
+        preserved).  The tenant must have no queries pending here — a live
+        move drains (``flush``) first, because tickets cannot cross
+        pipelines.  The tenant stays registered; callers remove it with
+        ``remove_tenant`` once the importing side has it.
+        """
+        t = self._tenant(tenant)
+        if self.service.pending(tenant):
+            raise RuntimeError(
+                f"tenant {tenant!r} has {self.service.pending(tenant)} queries "
+                "pending; flush() before exporting"
+            )
+        arrays, proto_meta = t.adapter.state_payload()
+        store_tree, store_extra = self.store.export_tenant(tenant)
+        return {
+            "format": "tenant-export-v1",
+            "tenant": tenant,
+            **self._tenant_record(t),
+            "proto_meta": proto_meta,
+            "arrays": {k: np.asarray(v) for k, v in dict(arrays).items()},
+            "store_tree": store_tree,
+            "store_extra": store_extra,
+        }
 
     def import_tenant(self, payload: dict) -> None:
-        """Tenant import rides the checkpoint format."""
-        _not_ported("import_tenant", 7)
+        """Install an ``export_tenant`` payload as a live tenant here.
+
+        Restores the protocol state, counters, and published store
+        versions bit-identically — answers after the move match answers
+        before it, version numbers included.  Raises if the tenant name
+        is already registered (or has snapshots) on this pipeline.
+        """
+        if payload.get("format") != "tenant-export-v1":
+            raise ValueError(
+                f"not a tenant export payload: format={payload.get('format')!r}"
+            )
+        name = payload["tenant"]
+        if name in self._tenants:
+            raise ValueError(f"tenant {name!r} already registered")
+        # Store first: import_tenant refuses resident tenants, so a
+        # half-applied payload cannot leave a registered tenant whose
+        # snapshots never arrived.
+        self.store.import_tenant(payload["store_tree"], payload["store_extra"])
+        self._install_tenant(name, payload, payload["arrays"], payload["proto_meta"])
 
     @staticmethod
     def read_tenant_export(directory: str, tenant: str, *, step: int | None = None) -> dict:
-        """Tenant export from a checkpoint rides the checkpoint format."""
-        _not_ported("read_tenant_export", 7)
+        """Build an ``import_tenant`` payload straight from a saved checkpoint.
+
+        Reads only the tenant's leaves (``ckpt.read_subset`` over its
+        ``tenant_NNNN__*`` protocol state and the store snapshots whose
+        manifest entry names it), so a rebalance from a checkpoint never
+        pays for the other tenants' I/O.
+        """
+        from repro_torch import ckpt
+
+        step, manifest = StreamingPipeline._pipeline_manifest(directory, step)
+        extra = manifest["extra"]
+        meta = extra["tenants"].get(tenant)
+        if meta is None:
+            raise KeyError(
+                f"tenant {tenant!r} not in checkpoint (has: {sorted(extra['tenants'])})"
+            )
+        prefix = meta["key"] + "__"
+        proto_names = [n for n in manifest["leaves"] if n.startswith(prefix)]
+        snap_entries = sorted(
+            (e for e in extra["store"]["snapshots"] if e["tenant"] == tenant),
+            key=lambda e: e["version"],
+        )
+        snap_names = [f"store__{e['key']}" for e in snap_entries]
+        leaves = ckpt.read_subset(directory, step, proto_names + snap_names)
+        # Renumber the snapshot keys from 0, so the payload has the shape a
+        # live ``SketchStore.export_tenant`` produces.
+        store_tree, renumbered = {}, []
+        for i, e in enumerate(snap_entries):
+            key = f"snap_{i:05d}"
+            store_tree[key] = leaves[f"store__{e['key']}"]
+            renumbered.append({**e, "key": key})
+        store_extra = {
+            "kind": "sketch_store",
+            "retain": extra["store"].get("retain", 0),
+            "next_version": {tenant: extra["store"]["next_version"].get(tenant, 1)},
+            "snapshots": renumbered,
+        }
+        record = {k: meta[k] for k in (
+            "workload", "ctor", "policy", "quota", "steps", "steps_since_publish",
+            "publishes", "published_frob", "latest_version", "proto_meta")}
+        return {
+            "format": "tenant-export-v1",
+            "tenant": tenant,
+            **record,
+            "arrays": {n[len(prefix):]: leaves[n] for n in proto_names},
+            "store_tree": store_tree,
+            "store_extra": store_extra,
+        }
 
     def remove_tenant(self, tenant: str) -> None:
         """Deregister a tenant and drop its published versions.
@@ -552,9 +775,100 @@ class StreamingPipeline:
         self._pump_or_poll()
         return snap
 
-    def ingest_many(self, batches, *, packed: bool = True) -> int:
-        """Packed multi-tenant ingest waits for the packed runner."""
-        _not_ported("ingest_many (packed multi-tenant ingest)", 9)
+    def ingest_many(self, batches: Iterable[tuple], *, packed: bool = True) -> int:
+        """Drive interleaved tenants: ``[(tenant, rows), ...]``; returns the
+        number of snapshots published.
+
+        Entries may also be ``(tenant, rows, ts)`` triples; timed batches
+        always take the serial per-tenant path (the packed launch has no
+        time axis), where full-stream tenants refuse them.
+
+        With ``packed=True`` (the default) the batches are regrouped into
+        waves — wave ``i`` holds each tenant's ``i``-th batch — and every
+        wave's super-step tenants that share a pack key (same protocol
+        config and device; see ``runtime.ingest_packed``) advance in ONE
+        stacked super-step instead of one per tenant.  Per-tenant batch
+        order is preserved, so each tenant's final state matches the
+        serial path to fp tolerance (zero padding is exact for the
+        packable protocols); only the cross-tenant interleaving — and so
+        the order snapshots publish within a wave — changes.  Deadlines
+        are pumped once per wave rather than once per batch.
+        ``packed=False`` is the strict one-``ingest``-per-batch loop.
+        """
+        batches = [tuple(b) if len(b) == 3 else (b[0], b[1], None) for b in batches]
+        if not packed:
+            return sum(self.ingest(tenant, rows, ts) is not None for tenant, rows, ts in batches)
+        per_tenant: dict[str, list] = {}
+        for tenant, rows, ts in batches:
+            per_tenant.setdefault(tenant, []).append((rows, ts))
+        published = 0
+        n_waves = max((len(v) for v in per_tenant.values()), default=0)
+        for w in range(n_waves):
+            wave = [(name, *v[w]) for name, v in per_tenant.items() if w < len(v)]
+            published += self._ingest_wave(wave)
+        return published
+
+    def _ingest_wave(self, wave: list) -> int:
+        """One wave of ``ingest_many``: pack what groups, step the rest.
+
+        Tenants whose adapters expose equal pack signatures (two or more of
+        them, untimed shardable batches) ride one ``ingest_packed`` call;
+        all others take the serial adapter path.  Publishes fire per tenant
+        exactly as serial ingest would; the wave's fresh matrix snapshots
+        then warm the query engine's spectrum cache with one batched
+        ``refresh_spectra`` pass.
+        """
+        from repro_torch.runtime.ingest_packed import (
+            ingest_packed,
+            pack_signature,
+            pack_target,
+        )
+
+        m = self._m_ingest
+        m["waves"].inc()
+        groups: dict = {}
+        serial: list = []
+        for name, rows, ts in wave:
+            t = self._tenant(name)
+            sig = pack_signature(t.adapter)
+            n = len(rows)
+            if ts is None and sig is not None and n and n % sig[1].m == 0:
+                groups.setdefault(sig, []).append((name, t, rows))
+            else:
+                serial.append((name, t, rows, ts))
+        snaps: list = []
+        with self.obs.trace("pipeline.ingest_wave", tenants=len(wave)):
+            t0 = self.obs.clock()
+            for members in groups.values():
+                if len(members) < 2:  # a pack of one gains nothing
+                    serial.extend((name, t, rows, None) for name, t, rows in members)
+                    continue
+                stats = ingest_packed(
+                    [(pack_target(t.adapter), rows) for _, t, rows in members]
+                )
+                m["packed_launches"].inc()
+                m["packed_tenants"].inc(stats["tenants"])
+                m["packed_rows"].inc(stats["rows"])
+                m["rows"].inc(stats["rows"])
+                m["batches"].inc(stats["tenants"])
+                m["pad_rows"].inc(stats["pad_rows"])
+                m["retraces"].inc(bool(stats["new_shape"]))
+                m["restacks"].inc(bool(stats["restacked"]))
+                for name, t, _ in members:
+                    snaps.append(self._post_ingest(name, t))
+            for name, t, rows, ts in serial:
+                t.adapter.ingest(rows, ts=ts)
+                m["serial_steps"].inc()
+                m["batches"].inc()
+                m["rows"].inc(len(rows))
+                snaps.append(self._post_ingest(name, t))
+            m["ingest_s"].inc(self.obs.clock() - t0)
+            fresh = [s for s in snaps if s is not None]
+            if fresh:
+                # One stacked eigh warms every same-shape matrix publish.
+                self.engine.refresh_spectra(fresh)
+        self._pump_or_poll()
+        return len(fresh)
 
     def _post_ingest(self, tenant: str, t: _Tenant):
         """Per-batch bookkeeping: advance the step counters and publish if
@@ -668,13 +982,126 @@ class StreamingPipeline:
     # -- persistence / accounting -------------------------------------------
 
     def save(self, directory: str, *, step: int = 0, attachments: dict | None = None) -> str:
-        """Pipeline checkpoints wait for the checkpoint format."""
-        _not_ported("StreamingPipeline.save (pipeline checkpoints)", 7)
+        """Checkpoint the whole pipeline atomically; returns the path.
+
+        One ``repro_torch.ckpt`` step holds both halves of the coordinator:
+        the published ``SketchStore`` versions *and* every tenant's live
+        protocol state (``state_payload``), plus policies, quotas, and
+        publish counters in the manifest — the reference's layout, so
+        either package loads it.  ``load`` rebuilds a pipeline that answers
+        queries bit-identically and resumes ingest mid-stream.  A running
+        ``ServicePump`` is stopped for the duration of the write and
+        restarted after (its interval is recorded, so ``load`` revives it
+        on the restored pipeline too).
+
+        ``attachments`` is a JSON-able dict stored verbatim under the
+        manifest's ``extra["attachments"]``, for wrapping layers to make
+        their own state durable in the same atomic step.  ``load`` ignores
+        it; owners read it back via ``ckpt.read_extra``.
+        """
+        pump = self.pump
+        if pump is not None:
+            pump.stop()
+        try:
+            return self._save(directory, step=step, attachments=attachments)
+        finally:
+            if pump is not None:
+                pump.start()
+
+    def _save(self, directory: str, *, step: int = 0, attachments: dict | None = None) -> str:
+        from repro_torch import ckpt
+
+        store_tree, store_extra = self.store.state_tree()
+        tree: dict = {"store": store_tree}
+        tenants_meta: dict[str, dict] = {}
+        # Tenant names are free-form; leaves get synthetic keys (the store
+        # does the same with snap_NNNNN) so a name with '/' or '__' can
+        # neither break checkpoint file paths nor alias the leaf namespace.
+        for i, (name, t) in enumerate(sorted(self._tenants.items())):
+            arrays, proto_meta = t.adapter.state_payload()
+            key = f"tenant_{i:04d}"
+            tree[key] = dict(arrays)
+            tenants_meta[name] = {"key": key, **self._tenant_record(t),
+                                  "proto_meta": proto_meta}
+        extra = {
+            "kind": "streaming_pipeline",
+            "store": store_extra,
+            "tenants": tenants_meta,
+            "defaults": {
+                "eps": self.default_eps,
+                "protocol": self.default_protocol,
+                "policy": policy_to_config(self.default_policy),
+                "pump_interval_s": None if self.pump is None else self.pump.interval_s,
+            },
+        }
+        if attachments is not None:
+            extra["attachments"] = attachments
+        return ckpt.save(directory, step, tree, extra=extra)
+
+    @staticmethod
+    def _pipeline_manifest(directory: str, step: int | None) -> tuple[int, dict]:
+        """The step (latest by default) and manifest of a pipeline checkpoint."""
+        from repro_torch import ckpt
+
+        if step is None:
+            step = ckpt.latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no pipeline checkpoint under {directory!r}")
+        manifest = ckpt.read_manifest(directory, step)
+        if manifest["extra"].get("kind") != "streaming_pipeline":
+            raise ValueError(
+                f"checkpoint at {directory!r} step {step} is not a streaming pipeline"
+            )
+        return step, manifest
 
     @classmethod
-    def load(cls, directory: str, m: int, **kw) -> "StreamingPipeline":
-        """Pipeline checkpoints wait for the checkpoint format."""
-        _not_ported("StreamingPipeline.load (pipeline checkpoints)", 7)
+    def load(cls, directory: str, m: int, *, step: int | None = None, device=None,
+             **pipeline_kw) -> "StreamingPipeline":
+        """Rebuild a pipeline from ``save`` output (latest step by default).
+
+        ``m`` must be the checkpoint's site count (protocol state is
+        per-site); ``device`` is where the restored tenants run (``None``:
+        the CUDA card).  A checkpoint the reference wrote on a mesh of m
+        devices loads here with the same m.  Remaining keyword arguments
+        (``max_batch``, ...) configure the fresh serving stack — queue
+        contents are not checkpointed; unresolved tickets do not survive a
+        coordinator crash.
+        """
+        from repro_torch import ckpt
+
+        step, manifest = cls._pipeline_manifest(directory, step)
+        extra = manifest["extra"]
+        # The manifest is the single source of truth for leaf shapes/dtypes:
+        # build each tenant's restore template from its synthetic key prefix
+        # ('tenant_NNNN__...', as written by save).  restore() then verifies
+        # per-leaf sha256, and restore_payload rejects config mismatches.
+        template: dict = {"store": SketchStore.state_template(extra["store"])}
+        for meta in extra["tenants"].values():
+            prefix = meta["key"] + "__"
+            template[meta["key"]] = {
+                leaf[len(prefix):]: np.zeros(info["shape"], info["dtype"])
+                for leaf, info in manifest["leaves"].items()
+                if leaf.startswith(prefix)
+            }
+        # Snapshots and payloads are host arrays: read to the CPU, and each
+        # protocol moves its own state to ``device``.
+        tree, _ = ckpt.restore(directory, step, template, device="cpu")
+
+        defaults = extra.get("defaults", {})
+        if "pump_interval_s" not in pipeline_kw and defaults.get("pump_interval_s"):
+            pipeline_kw["pump_interval_s"] = float(defaults["pump_interval_s"])
+        pipe = cls(
+            m,
+            eps=float(defaults.get("eps", 0.1)),
+            protocol=str(defaults.get("protocol", "P2")),
+            policy=policy_from_config(defaults["policy"]) if "policy" in defaults else None,
+            store=SketchStore.from_state_tree(tree["store"], extra["store"]),
+            device=device,
+            **pipeline_kw,
+        )
+        for name, meta in sorted(extra["tenants"].items()):
+            pipe._install_tenant(name, meta, tree[meta["key"]], meta["proto_meta"])
+        return pipe
 
     def publish_latency_s(self) -> float:
         """Total wall time spent publishing (store copies + host sync)."""
@@ -682,9 +1109,16 @@ class StreamingPipeline:
 
     def stats(self, tenant: str | None = None):
         """Lifetime counters: one tenant's ``TenantStats``, or — with no
-        tenant — the pipeline's ingest-side observability dict: the raw
-        ingest counters plus ``rows_per_sec`` (real rows over ingest wall
-        time) and ``shrink_launches`` (protocol super-steps dispatched).
+        tenant — the pipeline's ingest-side observability dict.
+
+        The pipeline-wide dict carries the raw ingest counters (rows,
+        batches, waves, packed launches/tenants/rows, pad slots, serial
+        steps, retraces, restacks, ingest seconds) plus the derived gauges
+        packed ingest is judged by: ``rows_per_sec`` (real rows over ingest
+        wall time), ``shrink_launches`` (packed launches + serial steps —
+        the protocol super-steps actually dispatched), and
+        ``pack_occupancy`` (real-row fraction of packed launch slots; 1.0
+        means no padding).
         """
         if tenant is None:
             # A fresh view over the obs registry (ints stay ints).
@@ -695,7 +1129,8 @@ class StreamingPipeline:
             c["rows_per_sec"] = (
                 c["rows"] / c["ingest_s"] if c["ingest_s"] > 0 else 0.0
             )
-            c["shrink_launches"] = c["serial_steps"]
+            c["shrink_launches"] = c["packed_launches"] + c["serial_steps"]
+            c["pack_occupancy"] = c["packed_rows"] / max(c["packed_rows"] + c["pad_rows"], 1)
             return c
         t = self._tenant(tenant)
         return TenantStats(

@@ -27,7 +27,8 @@ Both also speak the pipeline checkpoint contract — ``state_payload()`` /
 ``restore_payload()`` — with the reference's layout: the super-step
 engine's state as the reference's flattened leaves, the event engines'
 as their JSON-able ``state_dict``, so a payload taken from the reference
-restores here and vice versa.  The heavy-hitter and quantile kinds and
+restores here and vice versa.  The super-step engines also speak the
+packed-ingest contract (``pack_key`` / ``apply_packed``, a lazy ``state``).  The heavy-hitter and quantile kinds and
 the windowed flavours are not ported yet.
 """
 from __future__ import annotations
@@ -435,15 +436,47 @@ def _rebuild(template, leaves):
 
 
 class _ShardCheckpointMixin:
-    """Checkpoint contract shared by every super-step protocol.
+    """Checkpoint and packed-ingest contract shared by every super-step protocol.
 
     Flattens the protocol's state into the reference's leaf layout and
     restores bit-identically; subclasses supply ``_invalidate()`` to drop
     their host-side caches after a restore.
+
+    Also the packed-ingest contract: protocols whose distributed step is
+    in ``dist.PACKABLE_PROTOCOLS`` expose a ``pack_key`` so the pipeline
+    can stack same-shape tenants into one ``dist.make_packed_runner`` call,
+    and ``apply_packed`` installs one tenant's stake in the stacked result
+    with the bookkeeping a serial ``step`` performs.  The install is LAZY:
+    ``state`` is a property backed by either the tenant's own state or a
+    ``(stacked, index)`` slot into the pack's resident stacked state, and
+    the slice happens only when something reads the state (publish, query,
+    checkpoint).  ``_epoch`` counts every state write, so
+    ``runtime.ingest_packed`` can tell whether a cached stacked state is
+    still current for the whole group or a member stepped out of band.
     """
 
-    state: Any
     device: torch.device
+    # Set by each protocol's __init__: the core.distributed step name
+    # ("P1", "P2", "LP1").
+    _dist_key: str = ""
+    _state = None
+    _pack_slot: tuple | None = None
+    _epoch: int = 0
+
+    @property
+    def state(self):
+        """The protocol's state, sliced out of a pack on first read."""
+        if self._pack_slot is not None:
+            stacked, index = self._pack_slot
+            self._state = dist.unstack_packed(stacked, index)
+            self._pack_slot = None
+        return self._state
+
+    @state.setter
+    def state(self, value) -> None:
+        self._state = value
+        self._pack_slot = None
+        self._epoch += 1
 
     def state_payload(self) -> tuple[dict[str, np.ndarray], dict]:
         """Flatten the protocol state into checkpoint leaves."""
@@ -466,11 +499,37 @@ class _ShardCheckpointMixin:
             if tuple(arr.shape) != tuple(old.shape):
                 raise ValueError(
                     f"checkpointed state leaf {i} has shape {tuple(arr.shape)}, "
-                    f"expected {tuple(old.shape)} (protocol/config mismatch?)"
+                    f"expected {tuple(old.shape)} (protocol/config mismatch — was the "
+                    "pipeline reloaded with a different m?)"
                 )
             restored.append(arr.to(old.dtype))
         self.state = _rebuild(self.state, iter(restored))
         self.rows_seen = int(meta["rows_seen"])
+        self._invalidate()
+
+    def pack_key(self):
+        """Grouping key for packed multi-tenant ingest, or None.
+
+        Tenants with equal keys — same distributed step, same resolved
+        ``ProtocolConfig`` (hence same state shapes), same device — may be
+        stacked into one ``(T, ...)`` super-step.  Protocols outside
+        ``dist.PACKABLE_PROTOCOLS`` return None and always ingest serially.
+        """
+        if self._dist_key not in dist.PACKABLE_PROTOCOLS:
+            return None
+        return (self._dist_key, self.cfg, self.device)
+
+    def apply_packed(self, stacked_state, index: int, n_rows: int) -> None:
+        """Point this tenant at its slot in a packed super-step result.
+
+        No per-tenant slice happens here — the pack's stacked state stays
+        resident and the ``state`` property slices slot ``index`` out only
+        if something reads it before the next wave.
+        """
+        self._state = None
+        self._pack_slot = (stacked_state, index)
+        self._epoch += 1
+        self.rows_seen += int(n_rows)
         self._invalidate()
 
     def _invalidate(self) -> None:
@@ -488,6 +547,7 @@ class ShardProtocol(_ShardCheckpointMixin, SketchProtocol):
                  l_site: int = 0, l_coord: int = 0, device=None):
         super().__init__(name, "shard", m, eps, d, device)
         self.cfg = dist.ProtocolConfig(eps=eps, m=m, d=d, l_site=l_site, l_coord=l_coord).resolved()
+        self._dist_key = name
         self.state, self._step = dist.make_protocol_runner(name, self.cfg, self.device)
         self._cached_matrix: np.ndarray | None = None
 
@@ -532,7 +592,8 @@ class ShardLeverageProtocol(_ShardCheckpointMixin, LeverageProtocol):
         self.cfg = dist.ProtocolConfig(
             eps=eps, m=m, d=d, lev_cap=lev_cap, l_site=l_site, l_coord=l_coord,
         ).resolved()
-        self.state, self._step = dist.make_protocol_runner("L" + name, self.cfg, self.device)
+        self._dist_key = "L" + name
+        self.state, self._step = dist.make_protocol_runner(self._dist_key, self.cfg, self.device)
         self._cached_table: np.ndarray | None = None
 
     def step(self, rows, sites: np.ndarray | None = None) -> None:

@@ -160,7 +160,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     scanned = {f.relative_to(REPO / "src" / "repro_torch").as_posix() for f in files[:-1]}
     assert {"core/leverage.py", "core/protocols.py", "query/service.py",
             "runtime/pipeline.py", "runtime/policies.py", "models/attention.py",
-            "models/transformer.py", "serve/engine.py", "configs/registry.py"} <= scanned
+            "models/transformer.py", "serve/engine.py", "configs/registry.py",
+            "ckpt/checkpoint.py", "runtime/ingest_packed.py"} <= scanned
     bad = {
         f"{f.relative_to(REPO)}: {name}"
         for f in files
