@@ -7,12 +7,12 @@
 From the root of a checkout, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
 
-1. builds the hand-written kernels' six sources from
+1. builds the hand-written kernels' eight sources from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
    all at once), prints each kernel's ptxas registers, spills and static
    shared memory, and counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
    load) instructions in the SASS of ``flash_attention_wgmma.cu``: both must
-   be there.  In the SASS of the five f32 sources it counts ``FFMA``,
+   be there.  In the SASS of the seven f32 sources it counts ``FFMA``,
    shared loads (``LDS``, ``LDS.128``), ``cp.async`` copies (``LDGSTS``)
    and tensor-core instructions (``HMMA``, ``HGMMA``): the f32 kernels are
    IEEE f32 FMAs on the CUDA cores, so any of the last two fails the run;
@@ -95,11 +95,31 @@ the CUDA toolkit:
    ``CommReport`` totals printed side by side); saves the packed pipeline
    while its tenants' states still sit in the pack, loads it on the card
    (state leaves and served answers bit-identical), and after one more
-   packed wave into both holds their answers within 1e-5 ``||A_t||_F^2``.
+   packed wave into both holds their answers within 1e-5 ``||A_t||_F^2``;
+12. after 11, heavy-hitter and quantile tenants (path 5): one
+   ``StreamingPipeline`` of m = 50 sites, eps = 0.01 (k = 200 counters,
+   q_cap = 808), with an HH super-step P1 tenant on the reference
+   benchmark's 1,000,000-item stream (Zipf skew 2 keys over 50,000 ids,
+   weights U[1, 1000]), a quantile super-step P1 tenant on 200,000
+   lognormal(3, 1.5) values (weights U[1, 100]), HH event P1 and P2 and
+   quantile event P1 tenants on the first 20,000 items of those streams, and
+   a matrix P2 tenant (d = 1024) taking 4 waves of 4,000 rows; 16 waves (the
+   last two profiled), then one publish each; 1,024 HH lookups (the true
+   0.05-heavy keys and random ids), 1,024 quantile rank and phi-quantile
+   queries and 1,024 matrix directions through ``query_batch`` and one mixed
+   ``query_packed``, then ``heavy_hitters`` and ``quantiles``.  Every key's
+   HH estimate lies within ``err_factor * eps * W`` of its weight counted in
+   f64 on the host, recall of the heavy set is 1, the worst rank error of the
+   quantile probes is within ``err_factor * eps * W``; the pipeline is saved,
+   loaded on the card (leaves and answers bit-identical) and one more wave
+   gives the uninterrupted pipeline's answers.  ``mg_scan`` (one wave's site
+   scan) and ``quant_pack`` (the 50 site inserts, one coordinator merge) are
+   held bit for bit to their plain versions on the inputs the first wave
+   gave them, and timed beside a chain bound (their dependent steps).
 
 Launch counts are set to 0 just before each path (the P2 path, the
-pipeline, the packed pipeline, the serving run) and read just after; the
-serial pipeline of 11 runs before its window.  Comparisons of a kernel with its plain
+pipeline, the packed pipeline, path 5, the serving run) and read just
+after; the serial pipeline of 11 runs before its window.  Comparisons of a kernel with its plain
 version are made outside those windows.  It prints the card's name and
 power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failed check exits non-zero; so does a machine
@@ -148,18 +168,25 @@ SCORE_RTOL, SCORE_ATOL, LEV_ERR_FACTOR = 1e-3, 1e-5, 1.5
 DEV = "cuda"
 M, D, EPS, ROWS_PER_SITE = 8, 1024, 0.02, 512
 N_DIRS, N_CHECK_DIRS, RANK = 1024, 256, 32
+# The Pallas kernel each of the port's kernels stands for (``ops.KERNELS``:
+# one buffer or sketch counts as the single kernel, a stack as the batched
+# or packed one).
 PALLAS = {
-    "fd_gram": ("src/repro/kernels/fd_gram.py:52", "src/repro/kernels/fd_shrink_fused.py:60"),
-    "fd_project": ("src/repro/kernels/fd_project.py:49", "src/repro/kernels/fd_shrink_fused.py:99"),
-    "quadform": ("src/repro/kernels/quadform.py:127", "src/repro/kernels/quadform.py:92"),
-    "levscore": ("src/repro/kernels/levscore.py:71",),
-    "flash_attention": ("src/repro/kernels/flash_attention.py:166",),
+    "fd_gram": "src/repro/kernels/fd_gram.py:52",
+    "fd_gram_batched": "src/repro/kernels/fd_shrink_fused.py:60",
+    "fd_project": "src/repro/kernels/fd_project.py:49",
+    "fd_project_batched": "src/repro/kernels/fd_shrink_fused.py:99",
+    "quadform": "src/repro/kernels/quadform.py:127",
+    "quadform_packed": "src/repro/kernels/quadform.py:92",
+    "levscore": "src/repro/kernels/levscore.py:71",
+    "flash_attention": "src/repro/kernels/flash_attention.py:166",
 }
-P2_KERNELS = ("fd_gram", "fd_project", "quadform")
+SHRINK_KERNELS = ("fd_gram", "fd_gram_batched", "fd_project", "fd_project_batched")
+P2_KERNELS = SHRINK_KERNELS + ("quadform", "quadform_packed")
 # Opcodes counted in the SASS of the f32 sources; the last two (tensor-core
 # products: mma.sync and wmma, and wgmma) must not be there.
 SASS_F32 = ("FFMA", "LDS", "LDS.128", "LDGSTS", "HMMA", "HGMMA")
-PIPELINE_KERNELS = ("fd_gram", "fd_project", "quadform", "levscore")
+PIPELINE_KERNELS = SHRINK_KERNELS + ("quadform", "levscore")
 SERVE_ARCH, SERVE_BATCH, SERVE_GEN, SERVE_MAX_LEN = "qwen3-0.6b", 4, 32, 4224
 CHECK_PROMPT, CHECK_STEPS = 512, 8
 # Path 4, packed ingest: each of two pipelines holds 8 P2 matrix tenants and
@@ -172,7 +199,34 @@ PACK_MATRIX_ROWS = (4096, 4096, 4096, 2048, 2048, 2048, 1024, 1024)
 PACK_LEV_ROWS = (2048, 2048)
 PACK_COLD, PACK_WAVES, PACK_PROFILED_WAVES, PACK_PUBLISH_EVERY = "m3", 8, 2, 3
 PACK_TOL, PACK_FROB_RTOL = 1e-5, 1e-6
-PACK_KERNELS = ("fd_gram", "fd_project", "quadform", "levscore")
+PACK_KERNELS = ("fd_gram_batched", "fd_project_batched", "quadform", "levscore")
+# Path 5, heavy-hitter and quantile tenants: one pipeline of HQ_M sites at
+# HQ_EPS (k = 200 MG counters, q_cap = 808), the reference benchmarks' m
+# (benchmarks/hh_protocols.py:41) and streams: HH_ITEMS weighted items, Zipf
+# skew 2 keys over HH_KEYS ids, weights U[1, 1000] (:41-43); Q_ITEMS
+# lognormal(3, 1.5) values with weights U[1, 100] (benchmarks/quantile_protocols.py:36-40,
+# :54).  The event engines (host simulators) take the first EVENT_ITEMS of
+# each stream (BENCH_hh_pipeline.json's size); the matrix tenant takes
+# HQ_MATRIX_WAVES waves of HQ_MATRIX_ROWS rows of path 1's stream (a
+# super-step's 8 x 512 rows cut to a multiple of m).  HQ_WAVES waves, the
+# last HQ_PROFILED_WAVES under torch.profiler, then one more wave (the first
+# wave's items again) after the checkpoint.  Phi of the heavy-hitter set:
+# benchmarks/hh_protocols.py:27.
+HQ_M, HQ_EPS, HQ_WAVES, HQ_PROFILED_WAVES, HQ_PHI = 50, 0.01, 16, 2, 0.05
+HH_ITEMS, HH_KEYS, Q_ITEMS, EVENT_ITEMS = 1_000_000, 50_000, 200_000, 20_000
+HQ_MATRIX_WAVES, HQ_MATRIX_ROWS = 4, 4000
+HQ_KERNELS = ("mg_scan", "quant_pack", "quadform", "fd_gram", "fd_project")
+# The two kernels no Pallas kernel stands behind: the reference's sequential
+# loops, run as XLA code.
+NO_PALLAS = {
+    "mg_scan": "none (src/repro/core/hh.py:98 mg_update_stream, a lax.scan)",
+    "quant_pack": "none (src/repro/core/quantiles.py:468 _quant_pack, a lax.fori_loop)",
+}
+# A sequential kernel's chain bound: its dependent steps at about 30 cycles
+# each (a shared-memory round trip, or four dependent f32 additions, a
+# compare and a select) at the H100's 1.98 GHz boost clock.  A reckoning,
+# not a measurement.
+CHAIN_STEP_S = 30 / 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -342,24 +396,26 @@ def kernel_cases(torch, batches, l_site: int, l_coord: int):
         t, l, d = b.shape
         path = label in ("site shrink", "coordinator shrink", "refresh_spectra",
                          "packed site shrink")
+        stack = "" if t == 1 else "_batched"
         cases.append(dict(
-            kernel="fd_gram", shape=f"{label}: (T={t}, L={l}, d={d})",
-            pallas=PALLAS["fd_gram"][0 if t == 1 else 1],
+            kernel=f"fd_gram{stack}", shape=f"{label}: (T={t}, L={l}, d={d})",
+            pallas=PALLAS[f"fd_gram{stack}"],
             run=lambda b=b: fd_ops.fd_gram(b),
             plain=lambda b=b: ref.ref_fd_gram_batched(b),
             library=lambda b=b: torch.bmm(b, b.mT),
-            symmetric=True,
+            symmetric=True, on_path=path,
             # G is symmetric: the function needs l (l + 1) / 2 dot products
             # per sketch.
             flops=2.0 * t * l * (l + 1) / 2 * d, nbytes=4.0 * (t * l * d + t * l * l),
         ))
         w, u, _ = project_inputs(b, path)
         cases.append(dict(
-            kernel="fd_project", shape=f"{label}: (T={t}, L={l}, d={d})",
-            pallas=PALLAS["fd_project"][0 if t == 1 else 1],
+            kernel=f"fd_project{stack}", shape=f"{label}: (T={t}, L={l}, d={d})",
+            pallas=PALLAS[f"fd_project{stack}"],
             run=lambda w=w, u=u, b=b: fd_ops.fd_project(w, u, b),
             plain=lambda w=w, u=u, b=b: ref.ref_fd_project_batched(w, u, b),
             library=lambda u=u, b=b: torch.bmm(u.mT, b),  # U^T B; the w rescale is not in it
+            on_path=path,
             flops=2.0 * t * l * l * d + t * l * d,
             nbytes=4.0 * (t * l + t * l * l + 2 * t * l * d),
         ))
@@ -378,8 +434,9 @@ def kernel_cases(torch, batches, l_site: int, l_coord: int):
         n = x.shape[1]
         single = label == "query_batch"
         cases.append(dict(
-            kernel="quadform", shape=f"{label}: (T={t}, L={l}, N={n}, d={d})",
-            pallas=PALLAS["quadform"][0 if t == 1 else 1],
+            kernel="quadform" if t == 1 else "quadform_packed",
+            shape=f"{label}: (T={t}, L={l}, N={n}, d={d})",
+            pallas=PALLAS["quadform" if t == 1 else "quadform_packed"],
             run=(lambda b=b, x=x: ops.quadform(b[0], x[0])) if single
             else (lambda b=b, x=x: ops.quadform_packed(b, x)),
             plain=(lambda b=b, x=x: ref.ref_quadform(b[0], x[0])) if single
@@ -387,6 +444,7 @@ def kernel_cases(torch, batches, l_site: int, l_coord: int):
             # One sketch: one 2-D product, as a caller with one sketch writes it.
             library=(lambda b=b, x=x: (b[0] @ x[0].T).square().sum(0)) if t == 1
             else (lambda b=b, x=x: (b @ x.mT).square().sum(-2)),
+            on_path=label in ("query_batch", "query_packed"),
             flops=2.0 * t * l * n * d + 2.0 * t * l * n,
             nbytes=4.0 * (t * l * d + t * n * d + t * n),
         ))
@@ -405,33 +463,46 @@ def run_kernel_cases(torch, cases) -> list[dict]:
         check(torch.equal(got, again), f"{c['kernel']} {c['shape']}: two runs differ")
         if c.get("symmetric"):
             check(torch.equal(got, got.mT), f"{c['kernel']} {c['shape']}: G is not symmetric")
-        got = got.reshape(want.shape).float()
-        check(bool(torch.isfinite(got).all()), f"{c['kernel']} {c['shape']}: non-finite output")
-        diff = (got - want).abs()
-        err, scale = float(diff.max()), float(want.abs().max())
-        # |kernel - plain| <= elem_rtol * |plain| + KERNEL_RTOL * max |plain|, per element.
-        elem_rtol = c.get("elem_rtol", 0.0)
-        ratio = diff / (elem_rtol * want.abs() + KERNEL_RTOL * scale).clamp_min(1e-30)
-        worst = int(ratio.argmax())
-        err_over_tol = float(ratio.flatten()[worst])
-        check(err_over_tol <= 1.0,
-              f"{c['kernel']} {c['shape']}: |kernel - plain| = "
-              f"{float(diff.flatten()[worst]):.3e} at plain = {float(want.flatten()[worst]):.3e} "
-              f"> {elem_rtol:.3e} * |plain| + {KERNEL_RTOL} * {scale:.3e}")
-        del diff, ratio
+        if c.get("exact"):
+            # The sequential kernels make the plain version's f32 additions
+            # and comparisons in its order: bit for bit, +inf pads included.
+            check(torch.equal(got, want),
+                  f"{c['kernel']} {c['shape']}: kernel and plain version differ in "
+                  f"{int((got != want).sum())} of {got.numel()} values")
+            err = scale = err_over_tol = 0.0
+        else:
+            got = got.reshape(want.shape).float()
+            check(bool(torch.isfinite(got).all()), f"{c['kernel']} {c['shape']}: non-finite output")
+            diff = (got - want).abs()
+            err, scale = float(diff.max()), float(want.abs().max())
+            # |kernel - plain| <= elem_rtol * |plain| + KERNEL_RTOL * max |plain|, per element.
+            elem_rtol = c.get("elem_rtol", 0.0)
+            ratio = diff / (elem_rtol * want.abs() + KERNEL_RTOL * scale).clamp_min(1e-30)
+            worst = int(ratio.argmax())
+            err_over_tol = float(ratio.flatten()[worst])
+            check(err_over_tol <= 1.0,
+                  f"{c['kernel']} {c['shape']}: |kernel - plain| = "
+                  f"{float(diff.flatten()[worst]):.3e} at plain = "
+                  f"{float(want.flatten()[worst]):.3e} > {elem_rtol:.3e} * |plain| + "
+                  f"{KERNEL_RTOL} * {scale:.3e}")
+            del diff, ratio
         del got, again, want
         rate = c.get("rate", FLOPS_F32)
         b_ms, b_by = bound_ms(c["flops"], c["nbytes"], rate)
         extra = {}
         if rate != FLOPS_F32:  # also the table's convention: f32 on the CUDA cores
             extra["bound_f32_ms"] = bound_ms(c["flops"], c["nbytes"])[0]
+        if "chain_steps" in c:  # a sequential loop: its chain of dependent steps
+            extra.update(chain_steps=c["chain_steps"],
+                         chain_bound_ms=c["chain_steps"] * CHAIN_STEP_S * 1e3)
         results.append(dict(
             kernel=c["kernel"], shape=c["shape"], replaces=c["pallas"],
             source=c.get("source", ops.KERNELS[c["kernel"]][0].source),
             max_abs_err=err, max_rel_err=err / max(scale, 1e-30), err_over_tol=err_over_tol,
-            ms=time_ms(torch, c["run"]), plain_ms=time_ms(torch, c["plain"]),
+            ms=time_ms(torch, c["run"]), plain_ms=time_ms(torch, c["plain"], c.get("plain_reps", 20)),
             library_ms=time_ms(torch, c["library"]) if c["library"] else None,
             bound_ms=b_ms, bound_by=b_by, gflop=c["flops"] / 1e9, mbytes=c["nbytes"] / 1e6,
+            on_path=c.get("on_path", False),
             **extra,
         ))
     return results
@@ -592,9 +663,13 @@ def check_main_path(torch, run, ata, steps: int) -> dict:
 
     chunks_site = math.ceil(ROWS_PER_SITE / tracker.cfg.l_site)
     chunks_coord = math.ceil(M * tracker.cfg.l_site / tracker.cfg.l_coord)
-    want = {"fd_gram": steps * (chunks_site + chunks_coord) + 1, "fd_project": 0, "quadform": 2,
-            "levscore": 0, "flash_attention": 0}
-    want["fd_project"] = want["fd_gram"]
+    # The site buffers shrink as a stack of m and refresh_spectra takes the
+    # stack of published sketches; the coordinator shrinks alone, and
+    # query_batch serves one sketch.
+    want = dict.fromkeys(run["launches"], 0)
+    for form, n in (("", steps * chunks_coord), ("_batched", steps * chunks_site + 1)):
+        want[f"fd_gram{form}"] = want[f"fd_project{form}"] = n
+    want.update(quadform=1, quadform_packed=1)
     for name in P2_KERNELS:
         check(run["launches"][name] > 0, f"kernel {name} was not launched on the main path")
     check(run["launches"] == want, f"launches {run['launches']} != expected {want}")
@@ -832,10 +907,10 @@ def levscore_cases(torch, prun) -> tuple[list[dict], float]:
                         ("score queries, factor not symmetric", m_skew, x_path)):
         n, d = x.shape
         cases.append(dict(
-            kernel="levscore", shape=f"{label}: (N={n}, d={d})", pallas=PALLAS["levscore"][0],
+            kernel="levscore", shape=f"{label}: (N={n}, d={d})", pallas=PALLAS["levscore"],
             run=lambda m=m, x=x: ops.levscore(m, x),
             plain=lambda m=m, x=x: ref.ref_levscore(m, x),
-            library=lambda m=m, x=x: (x @ m * x).sum(1),
+            library=lambda m=m, x=x: (x @ m * x).sum(1), on_path=label == "score queries",
             flops=2.0 * n * d * d + 2.0 * n * d, nbytes=4.0 * (d * d + n * d + n),
         ))
     return cases, pinv_s
@@ -1162,6 +1237,382 @@ def check_packed(prun) -> dict:
                 comm_equal=all(a == b for a, b in comm.values()))
 
 
+def zipfian_stream(n: int, *, skew: float = 2.0, universe: int = 10_000, beta: float = 1000.0,
+                   seed: int = 0):
+    """A numpy copy of the reference's ``data.synthetic.zipfian_stream``
+    (src/repro/data/synthetic.py:24-29): zipf(skew) keys, U[1, beta] weights."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    keys = (rng.zipf(skew, size=n) % universe).astype(np.int64)
+    weights = rng.uniform(1.0, beta, size=n)
+    return keys, weights
+
+
+def hq_streams(seed: int) -> dict:
+    """Path 5's two streams from ``seed`` (seed 0: the reference benchmarks'
+    seeds 11 and 21): HH_ITEMS (key, weight) items and Q_ITEMS (value,
+    weight) items, as (items, 2) host arrays."""
+    import numpy as np
+
+    keys, w = zipfian_stream(HH_ITEMS, beta=1000.0, universe=HH_KEYS, seed=seed + 11)
+    values = np.random.default_rng(seed + 21).lognormal(3.0, 1.5, Q_ITEMS).astype(np.float32)
+    _, qw = zipfian_stream(Q_ITEMS, beta=100.0, universe=50_000, seed=seed + 21)
+    return {"hh": (keys, w), "q": (values.astype(np.float64), qw)}
+
+
+def hq_waves(streams: dict, batches) -> list[list[tuple]]:
+    """HQ_WAVES waves of ``(tenant, batch)``: each stream cut in HQ_WAVES
+    equal slices (the event tenants' EVENT_ITEMS likewise), the matrix
+    tenant's HQ_MATRIX_ROWS rows in the first HQ_MATRIX_WAVES."""
+    def cut(pair, n, w):
+        per = n // HQ_WAVES
+        return tuple(a[w * per:(w + 1) * per] for a in pair)
+
+    waves = []
+    for w in range(HQ_WAVES):
+        wave = [("hh", cut(streams["hh"], HH_ITEMS, w)), ("q", cut(streams["q"], Q_ITEMS, w))]
+        wave += [(name, cut(streams[kind], EVENT_ITEMS, w))
+                 for name, kind in (("hh-ev-p1", "hh"), ("hh-ev-p2", "hh"), ("q-ev-p1", "q"))]
+        if w < HQ_MATRIX_WAVES:
+            wave.append(("matrix", batches[w % len(batches)][:HQ_MATRIX_ROWS]))
+        waves.append(wave)
+    return waves
+
+
+def hq_pipeline():
+    """Path 5's pipeline: HH (super-step P1, event P1 and P2), quantile
+    (super-step P1, event P1) and one matrix P2 tenant, m = HQ_M."""
+    from repro_torch.runtime import OnDemand, StreamingPipeline
+
+    pipe = StreamingPipeline(HQ_M, eps=HQ_EPS, policy=OnDemand(), max_batch=8 * N_DIRS,
+                             default_deadline_s=3600.0, device=DEV)
+    pipe.add_hh_tenant("hh", engine="shard")
+    pipe.add_hh_tenant("hh-ev-p1", engine="event")
+    pipe.add_hh_tenant("hh-ev-p2", protocol="P2", engine="event")
+    pipe.add_quantile_tenant("q", engine="shard")
+    pipe.add_quantile_tenant("q-ev-p1", engine="event")
+    pipe.add_tenant("matrix", D, eps=EPS, protocol="P2")
+    return pipe
+
+
+def hq_queries(torch, streams: dict, seed: int) -> dict:
+    """The served queries, N_DIRS of each kind.  HH: the true phi-heavy
+    keys and random ids; quantile: half rank queries at stream values, half
+    phi-quantile queries (phi in f32, as a query row carries it); matrix:
+    unit directions."""
+    import numpy as np
+
+    from repro_torch.core.hh import exact_heavy_hitters
+
+    rng = np.random.default_rng(seed + 31)
+    heavy, _, _ = exact_heavy_hitters(*streams["hh"], HQ_PHI)
+    ids = np.concatenate([np.array(sorted(heavy), np.int64),
+                          rng.integers(0, HH_KEYS, N_DIRS - len(heavy))])
+    values = rng.choice(streams["q"][0], N_DIRS // 2)
+    phis = rng.uniform(0.01, 0.99, N_DIRS - N_DIRS // 2).astype(np.float32).astype(np.float64)
+    q = np.concatenate([np.stack([np.zeros_like(values), values], 1),
+                        np.stack([np.ones_like(phis), phis], 1)]).astype(np.float32)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 32)
+    x = unit_dirs(torch, gen, N_DIRS).cpu().numpy()
+    return {"ids": ids.astype(np.float32)[:, None], "q": q, "x": x, "phis": phis,
+            "heavy": sorted(heavy)}
+
+
+def hq_answers(pipe, queries) -> dict:
+    """Every tenant's served answers: ``query_batch`` and one mixed
+    ``query_packed``, the heavy-hitter sets and the phi-quantiles."""
+    from repro_torch.query import PackedRequest
+
+    eng = pipe.engine
+    per = {"hh": queries["ids"], "hh-ev-p1": queries["ids"], "hh-ev-p2": queries["ids"],
+           "q": queries["q"], "q-ev-p1": queries["q"], "matrix": queries["x"]}
+    out = {name: eng.query_batch(x, tenant=name).estimates for name, x in per.items()}
+    packed = eng.query_packed([PackedRequest(name, x) for name, x in per.items()])
+    out.update({f"packed {r.tenant}": r.estimates for r in packed})
+    for name in ("hh", "hh-ev-p1", "hh-ev-p2"):
+        out[f"heavy_hitters {name}"] = pipe.heavy_hitters(name, HQ_PHI)
+    for name in ("q", "q-ev-p1"):
+        out[f"quantiles {name}"] = pipe.quantiles(name, queries["phis"])
+    return out
+
+
+def hq_identical(a: dict, b: dict, skip=()) -> bool:
+    """Bit equality of two ``hq_answers`` results (keys in ``skip`` aside)."""
+    import numpy as np
+
+    return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in b if k not in skip)
+
+
+class _Recorder:
+    """Records the first call of a kernel wrapper in ``ops`` whose inputs
+    ``want(*args)`` accepts, passing every call through."""
+
+    def __init__(self, ops, name, want):
+        self.ops, self.name, self.want, self.args = ops, name, want, None
+        self.real = getattr(ops, name)
+
+    def __call__(self, *args):
+        if self.args is None and self.want(*args):
+            self.args = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+        return self.real(*args)
+
+    def __enter__(self):
+        setattr(self.ops, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.real)
+
+
+def drive_hq(torch, batches, seed: int) -> dict:
+    """Path 5: ``hq_pipeline`` ingests HQ_WAVES waves (launch counts set to 0
+    first; each tenant's ingest timed on the synchronised host clock, the
+    last HQ_PROFILED_WAVES under ``torch.profiler``), publishes and serves
+    ``hq_queries`` through ``query_batch`` and ``query_packed``; then —
+    outside the counted window — saves the pipeline, loads it on the card
+    and feeds one more wave into both.  The first wave records the kernels'
+    inputs at the path's shapes: the site scan of ``mg_scan``, the site
+    inserts and one coordinator merge of ``quant_pack``."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.query import PackedRequest
+    from repro_torch.runtime import StreamingPipeline
+
+    t_phase = time.perf_counter()
+    streams = hq_streams(seed)
+    waves = hq_waves(streams, batches)
+    queries = hq_queries(torch, streams, seed)
+    pipe = hq_pipeline()
+    names = [name for name, _ in waves[0]]
+    ingest_s = dict.fromkeys(names, 0.0)
+    items = dict.fromkeys(names, 0)
+    timed = HQ_WAVES - HQ_PROFILED_WAVES
+
+    def feed(wave, clock: bool) -> None:
+        for name, batch in wave:
+            t0 = time.perf_counter()
+            pipe.ingest(name, batch)
+            torch.cuda.synchronize()
+            if clock:
+                ingest_s[name] += time.perf_counter() - t0
+                items[name] += len(batch[0]) if isinstance(batch, tuple) else batch.shape[0]
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    with _Recorder(ops, "mg_scan", lambda *a: a[0].shape[0] == HQ_M) as rec_mg, \
+            _Recorder(ops, "quant_pack", lambda *a: a[0].shape[0] == HQ_M) as rec_site, \
+            _Recorder(ops, "quant_pack", lambda *a: a[0].shape[0] == 1) as rec_coord:
+        feed(waves[0], clock=True)
+    for wave in waves[1:timed]:
+        feed(wave, clock=True)
+    prof = profile_hq(torch, lambda: [feed(w, clock=False) for w in waves[timed:]])
+    t0 = time.perf_counter()
+    snaps = {name: pipe.publish(name) for name in names}
+    publish_s = time.perf_counter() - t0
+    answers = hq_answers(pipe, queries)
+    eng = pipe.engine
+    latency = time_calls({
+        "hh query_batch": (N_DIRS, lambda: eng.query_batch(queries["ids"], tenant="hh")),
+        "quantile query_batch": (N_DIRS, lambda: eng.query_batch(queries["q"], tenant="q")),
+        "matrix query_batch": (N_DIRS, lambda: eng.query_batch(queries["x"], tenant="matrix")),
+        "mixed query_packed (hh, q, matrix)": (3 * N_DIRS, lambda: eng.query_packed([
+            PackedRequest("hh", queries["ids"]), PackedRequest("q", queries["q"]),
+            PackedRequest("matrix", queries["x"])])),
+        "heavy_hitters": (1, lambda: pipe.heavy_hitters("hh", HQ_PHI)),
+        "quantiles": (len(queries["phis"]), lambda: pipe.quantiles("q", queries["phis"])),
+    })
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    hq_s = time.perf_counter() - t_phase
+
+    # The checkpoint, outside the counted window.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pipe.save(tmp)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        loaded = StreamingPipeline.load(tmp, HQ_M, device=DEV, max_batch=8 * N_DIRS,
+                                        default_deadline_s=3600.0)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    leaves_equal = all(
+        all(np.array_equal(a[k], b[k]) for k in b)
+        for a, b in ((loaded._tenant(n).adapter.state_payload()[0],
+                      pipe._tenant(n).adapter.state_payload()[0]) for n in names))
+    loaded_bitwise = hq_identical(hq_answers(loaded, queries), answers)
+    tail = [(name, waves[0][i][1]) for i, name in enumerate(names)]
+    for p_ in (pipe, loaded):
+        for name, batch in tail:
+            p_.ingest(name, batch)
+            p_.publish(name)
+    tail_answers = {"uninterrupted": hq_answers(pipe, queries), "loaded": hq_answers(loaded, queries)}
+    torch.cuda.synchronize()
+    return dict(pipe=pipe, streams=streams, queries=queries, snaps=snaps, answers=answers,
+                ingest_s=ingest_s, items=items, publish_s=publish_s, latency=latency,
+                profile=prof, launches=launches, save_s=save_s, load_s=load_s, bytes=nbytes,
+                leaves_equal=leaves_equal, loaded_bitwise=loaded_bitwise,
+                tail_answers=tail_answers, tail=tail, batches=batches, hq_s=hq_s,
+                recorded={"mg_scan": rec_mg.args, "quant_pack site": rec_site.args,
+                          "quant_pack coord": rec_coord.args},
+                phase_s=time.perf_counter() - t_phase)
+
+
+def profile_hq(torch, fn) -> dict:
+    """``torch.profiler`` over ``fn()`` (path 5's last waves): device busy
+    share, and the device time and launches of the two sequential kernels
+    (summed from the raw events, as ``raw_profile`` does)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev, count, _ = raw_profile(prof)
+    busy_us = sum(dev.values())
+    check(busy_us > 0, "the profiler saw no device time in path 5's waves")
+    kernels = {}
+    for name in ("mg_scan", "quant_pack"):
+        us = sum(v for k, v in dev.items() if f"{name}_kernel" in k)
+        n = sum(c for k, c in count.items() if f"{name}_kernel" in k)
+        kernels[name] = dict(device_ms=us / 1e3, launches=n, us_a_launch=us / max(n, 1))
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    return dict(waves=HQ_PROFILED_WAVES, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                device_busy_share=busy_us / wall_us, device_launches=sum(count.values()),
+                kernels=kernels, top_device_ms={k: v / 1e3 for k, v in top})
+
+
+def check_hq(torch, hq) -> dict:
+    """Path 5's answers against the truth counted in f64 on the host, and its
+    launches: HH estimates of every key within ``err_factor * eps * W`` and
+    recall 1 of the phi-heavy set; the worst rank error of the 1024 quantile
+    probes within ``err_factor * eps * W``; matrix answers within 2 eps
+    ``||A||_F^2`` of dense truth; ``query_packed`` answers equal to
+    ``query_batch``'s; the checkpoint bit-identical."""
+    import numpy as np
+
+    from repro_torch.core.hh import decode_hh_snapshot
+    from repro_torch.core.quantiles import exact_ranks
+    from repro_torch.runtime import get_spec
+
+    ans, q, streams = hq["answers"], hq["queries"], hq["streams"]
+    out = {"hh": {}, "quantile": {}}
+    for name, proto, engine, n in (("hh", "P1", "shard", HH_ITEMS),
+                                   ("hh-ev-p1", "P1", "event", EVENT_ITEMS),
+                                   ("hh-ev-p2", "P2", "event", EVENT_ITEMS)):
+        keys, w = (a[:n] for a in streams["hh"])
+        truth = np.bincount(keys, weights=w, minlength=HH_KEYS)
+        w_total = float(w.sum())
+        est = np.zeros(HH_KEYS)
+        for e, v in decode_hh_snapshot(hq["snaps"][name].matrix).items():
+            est[e] = v
+        factor = get_spec(proto, engine, "hh").err_factor
+        err = float(np.abs(est - truth).max()) / w_total
+        check(err <= factor * HQ_EPS,
+              f"{name}: max |estimate - weight| = {err:.3e} W > {factor} eps W")
+        heavy = {int(e) for e in np.nonzero(truth >= HQ_PHI * w_total)[0]}
+        found = set(ans[f"heavy_hitters {name}"])
+        recall = len(heavy & found) / max(len(heavy), 1)
+        check(recall == 1.0, f"{name}: recall {recall} of the {HQ_PHI}-heavy set {sorted(heavy)}")
+        served = ans[name]
+        check(np.array_equal(served, est[q["ids"][:, 0].astype(np.int64)].astype(np.float32)),
+              f"{name}: served lookups differ from the published estimates")
+        out["hh"][name] = dict(max_err_over_w=err, limit=factor * HQ_EPS, heavy=sorted(heavy),
+                               found=sorted(found), recall=recall,
+                               precision=len(heavy & found) / max(len(found), 1))
+    for name, proto, engine, n in (("q", "P1", "shard", Q_ITEMS),
+                                   ("q-ev-p1", "P1", "event", EVENT_ITEMS)):
+        values, w = (a[:n] for a in streams["q"])
+        w_total = float(w.sum())
+        served = ans[name].astype(np.float64)
+        is_rank = q["q"][:, 0] == 0.0
+        rank_err = np.abs(served[is_rank] - exact_ranks(values, w, q["q"][is_rank, 1])) / w_total
+        quant_err = np.abs(exact_ranks(values, w, served[~is_rank])
+                           - q["q"][~is_rank, 1].astype(np.float64) * w_total) / w_total
+        worst = float(max(rank_err.max(), quant_err.max()))
+        factor = get_spec(proto, engine, "quantile").err_factor
+        check(worst <= factor * HQ_EPS, f"{name}: worst rank error {worst:.3e} W > {factor} eps W")
+        check(np.array_equal(ans[f"quantiles {name}"].astype(np.float32),
+                             ans[name][~is_rank]),
+              f"{name}: quantiles() differs from the served phi-quantile queries")
+        out["quantile"][name] = dict(worst_rank_err_over_w=worst, limit=factor * HQ_EPS,
+                                     rank_probes=int(is_rank.sum()),
+                                     quantile_probes=int((~is_rank).sum()))
+    rows = torch.cat([hq["batches"][w % len(hq["batches"])][:HQ_MATRIX_ROWS]
+                      for w in range(HQ_MATRIX_WAVES)]).double()
+    ata = rows.T @ rows
+    frob = float(torch.diagonal(ata).sum())
+    x = torch.tensor(q["x"], device=DEV, dtype=torch.float64)
+    truth = ((x @ ata) * x).sum(1).cpu().numpy()
+    mat_gap = float(np.abs(ans["matrix"] - truth).max()) / frob
+    check(mat_gap <= 2 * EPS, f"path 5 matrix tenant gap {mat_gap} > 2 eps ||A||_F^2")
+    for name in ("hh", "hh-ev-p1", "hh-ev-p2", "q", "q-ev-p1", "matrix"):
+        check(np.array_equal(ans[f"packed {name}"], ans[name]),
+              f"{name}: query_packed answers differ from query_batch's")
+    for name in HQ_KERNELS:
+        check(hq["launches"][name] > 0, f"kernel {name} was not launched on path 5")
+    check(hq["launches"]["levscore"] == 0 and hq["launches"]["flash_attention"] == 0,
+          f"path 5 launched a kernel it does not run: {hq['launches']}")
+    check(hq["leaves_equal"], "path 5: a state leaf differs right after the load")
+    check(hq["loaded_bitwise"], "path 5: served answers differ right after the load")
+    after = hq["tail_answers"]
+    check(hq_identical(after["loaded"], after["uninterrupted"], skip=("matrix", "packed matrix")),
+          "path 5: after one more wave the loaded pipeline answers differently")
+    mass = frob + float(hq["batches"][0][:HQ_MATRIX_ROWS].double().square().sum())
+    tail_gap = max(float(np.abs(after["loaded"][k].astype(np.float64)
+                                - after["uninterrupted"][k]).max()) / mass
+                   for k in ("matrix", "packed matrix"))
+    check(tail_gap <= PACK_TOL, f"path 5 matrix after one more wave: {tail_gap} ||A||_F^2")
+    return dict(out, matrix_gap=mat_gap, tail_matrix_gap=tail_gap,
+                comm={n: hq["pipe"].tracker(n).comm_report().as_dict()
+                      for n in hq["pipe"].tenants()})
+
+
+def hq_cases(torch, hq) -> list[dict]:
+    """``mg_scan`` and ``quant_pack`` at path 5's shapes, on the inputs the
+    first wave gave them: the site scan (50 summaries x one wave's items),
+    the 50 site inserts and one coordinator merge.  Bit for bit against the
+    plain step-by-step loops, whose device time is taken over 2 calls (each
+    is tens of thousands of launches)."""
+    from repro_torch.kernels import ops, ref
+
+    def flat(out):
+        return torch.cat([t.double().flatten() for t in out])
+
+    cases = []
+    args = hq["recorded"]["mg_scan"]
+    check(args is not None, "path 5's first wave recorded no mg_scan call")
+    s, k = args[0].shape
+    b = args[4].shape[1]
+    cases.append(dict(
+        kernel="mg_scan", shape=f"site scan: (S={s}, k={k}, b={b})", pallas=NO_PALLAS["mg_scan"],
+        run=lambda a=args: flat(ops.mg_scan(*a)), plain=lambda a=args: flat(ref.ref_mg_scan(*a)),
+        library=None, exact=True, plain_reps=2, chain_steps=b, on_path=True,
+        # Each item compares every slot, at least: S b k operations.
+        flops=float(s * b * k), nbytes=8.0 * (2 * s * k + 2 * s + s * b),
+    ))
+    for label, key in (("site inserts", "quant_pack site"), ("coordinator merge", "quant_pack coord")):
+        args = hq["recorded"][key]
+        check(args is not None, f"path 5's first wave recorded no quant_pack call ({label})")
+        t, n = args[0].shape
+        cap = args[5]
+        cases.append(dict(
+            kernel="quant_pack", shape=f"{label}: (T={t}, n={n}, cap={cap})",
+            pallas=NO_PALLAS["quant_pack"],
+            run=lambda a=args: flat(ops.quant_pack(*a)),
+            plain=lambda a=args: flat(ref.ref_quant_pack(*a)),
+            library=None, exact=True, plain_reps=2, chain_steps=n, on_path=True,
+            # About eight f32 additions and comparisons a tuple.
+            flops=8.0 * t * n, nbytes=4.0 * (4 * t * n + t + 4 * t * cap),
+        ))
+    return cases
+
 def attention_pairs(s: int, window: int) -> int:
     """(query, key) pairs causal attention over s positions needs, with a window."""
     if window <= 0 or window >= s:
@@ -1193,7 +1644,7 @@ def flash_cases(torch, seed: int, prompt_len: int) -> list[dict]:
             kernel="flash_attention",
             shape=f"{label}: (b={b}, hq={hq}, hkv={hkv}, s={s}, dh={dh}, window={window}, "
                   f"softcap={cap}, {str(dtype).split('.')[-1]})",
-            pallas=PALLAS["flash_attention"][0],
+            pallas=PALLAS["flash_attention"],
             source=(ops.FLASH_ATTENTION_BF16 if bf16 else ops.FLASH_ATTENTION).source,
             run=lambda q=q, k=k, v=v, kw=kw: ops.flash_attention(q, k, v, **kw),
             plain=lambda q=q, k=k, v=v, kw=kw: ref.ref_attention(q, k, v, **kw),
@@ -1204,7 +1655,7 @@ def flash_cases(torch, seed: int, prompt_len: int) -> list[dict]:
             # on the plain causal shape.
             library=(lambda q=q, k=k, v=v: sdpa(q, k, v, is_causal=True, enable_gqa=True))
             if window == 0 and cap == 0.0 else None,
-            rate=FLOPS_BF16 if bf16 else FLOPS_F32,
+            rate=FLOPS_BF16 if bf16 else FLOPS_F32, on_path=label == "serving prefill",
             flops=4.0 * b * hq * dh * attention_pairs(s, window),
             nbytes=float(size * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)),
         ))
@@ -1430,6 +1881,13 @@ def main() -> int:
     # Path 4: packed multi-tenant ingest against serial, and a checkpoint.
     pk = drive_packed(torch, batches, cfg.l_site)
     pack_checks = check_packed(pk)
+
+    # Path 5: heavy-hitter and quantile tenants beside a matrix tenant, and a checkpoint.
+    hq = drive_hq(torch, batches, args.seed)
+    hq_checks = check_hq(torch, hq)
+    cases += run_kernel_cases(torch, hq_cases(torch, hq))
+    for key in ("pipe", "batches", "tail", "recorded"):
+        del hq[key]
     del batches, ata, lev_batches
     for key in ("serial", "packed"):
         del pk[key]["pipe"]
@@ -1483,6 +1941,17 @@ def main() -> int:
         answers_bit_identical_after_load=pk["loaded_bitwise"], checks=pack_checks,
         launches=pk["launches"], phase_s=pk["phase_s"], stages_s=pk["stages_s"],
     )
+    summary["hq_path"] = dict(
+        m=HQ_M, eps=HQ_EPS, waves=HQ_WAVES, profiled_waves=HQ_PROFILED_WAVES,
+        items=dict(hh=HH_ITEMS, quantile=Q_ITEMS, event=EVENT_ITEMS,
+                   matrix_rows=HQ_MATRIX_WAVES * HQ_MATRIX_ROWS),
+        items_per_s={n: hq["items"][n] / hq["ingest_s"][n] for n in hq["items"]},
+        ingest_s=hq["ingest_s"], publish_s=hq["publish_s"], latency=hq["latency"],
+        profile=hq["profile"], launches=hq["launches"], save_s=hq["save_s"],
+        load_s=hq["load_s"], checkpoint_bytes=hq["bytes"], leaves_equal=hq["leaves_equal"],
+        answers_bit_identical_after_load=hq["loaded_bitwise"], checks=hq_checks,
+        window_s=hq["hq_s"], phase_s=hq["phase_s"],
+    )
     n_prompt, n_new = SERVE_BATCH * args.serve_prompt, SERVE_BATCH * (SERVE_GEN - 1)
     summary["serving_path"] = dict(
         arch=SERVE_ARCH, layers=srun["cfg"].n_layers, dtype=srun["cfg"].dtype,
@@ -1496,15 +1965,17 @@ def main() -> int:
     kernels = []
     for name in ops.KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
-        main = max(mine, key=lambda c: c["gflop"])  # the heaviest shape stands for the kernel
+        # The heaviest of the path's shapes stands for the kernel.
+        main = max([c for c in mine if c["on_path"]] or mine, key=lambda c: c["gflop"])
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{main['source']}",
-            replaces="; ".join(PALLAS[name]),
+            replaces=PALLAS.get(name) or NO_PALLAS[name],
             launches=(run["launches"][name] + prun["launches"][name] + pk["launches"][name]
-                      + srun["launches"][name]),
+                      + hq["launches"][name] + srun["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], shape=main["shape"], shapes=mine,
+            **({"chain_bound_ms": main["chain_bound_ms"]} if "chain_bound_ms" in main else {}),
         ))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1576,6 +2047,33 @@ def main() -> int:
           f"wave matrix {pc['loaded_vs_packed_after_tail']['matrix']:.2e}, subspace "
           f"{pc['loaded_vs_packed_after_tail']['subspace']:.2e} ||A_t||_F^2, score "
           f"{pc['loaded_vs_packed_after_tail']['score']:.3f} of its tolerance")
+    hp = summary["hq_path"]
+    print(f"path 5, heavy hitters and quantiles (m = {HQ_M}, eps = {HQ_EPS}; {card}): items/s "
+          + ", ".join(f"{n} {v:.0f}" for n, v in hp["items_per_s"].items())
+          + f" over {HQ_WAVES - HQ_PROFILED_WAVES} waves (synchronised host clock); window "
+          f"{hp['window_s']:.1f} s, phase {hp['phase_s']:.1f} s")
+    hk = hp["profile"]["kernels"]
+    print(f"path 5 profile of {HQ_PROFILED_WAVES} waves: device busy "
+          f"{hp['profile']['device_busy_share']:.1%} of {hp['profile']['wall_ms']:.1f} ms; "
+          + "; ".join(f"{n} {v['launches']} launches, {v['us_a_launch']:.1f} us a launch"
+                      for n, v in hk.items())
+          + f"; launches in the window {json.dumps({k: hp['launches'][k] for k in HQ_KERNELS})}")
+    for n, v in hp["checks"]["hh"].items():
+        print(f"path 5 {n}: max |estimate - weight| {v['max_err_over_w']:.3e} W (limit "
+              f"{v['limit']}), recall {v['recall']}, precision {v['precision']:.3f}, "
+              f"heavy {v['heavy']}")
+    for n, v in hp["checks"]["quantile"].items():
+        print(f"path 5 {n}: worst rank error {v['worst_rank_err_over_w']:.3e} W over "
+              f"{v['rank_probes']} + {v['quantile_probes']} probes (limit {v['limit']})")
+    print("path 5 latency: " + "; ".join(
+        f"{k} {v['directions'] / v['qps_median'] * 1e3:.3f} ms median "
+        f"({v['directions'] / v['qps_fastest'] * 1e3:.3f}-{v['directions'] / v['qps_slowest'] * 1e3:.3f})"
+        for k, v in hp["latency"].items()))
+    print(f"path 5 checkpoint: save {hp['save_s']:.2f} s, load {hp['load_s']:.2f} s, "
+          f"{hp['checkpoint_bytes']} bytes; leaves equal {hp['leaves_equal']}, answers "
+          f"bit-identical {hp['answers_bit_identical_after_load']}; after one more wave the "
+          f"matrix tenant within {hp['checks']['tail_matrix_gap']:.2e} ||A||_F^2, the rest "
+          f"bit-identical")
     sp = summary["serving_path"]
     print(f"serving {SERVE_ARCH}: {SERVE_BATCH} x {args.serve_prompt} prompt tokens, "
           f"{SERVE_GEN} new each: prefill tokens/s {sp['prefill_tokens_per_s']}, "

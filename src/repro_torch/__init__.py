@@ -4,7 +4,8 @@ The PyTorch port of ``repro``, subpackage for subpackage, with the Pallas
 kernels rewritten as hand-written CUDA C++ for Hopper (``sm_90a``).
 
 Core entry points:
-    repro_torch.core     — FD sketch, shard protocols P1/P2, tracker
+    repro_torch.core     — FD sketch, MG and GK summaries, the super-step
+                           protocols, tracker
     repro_torch.query    — coordinator query serving (store -> engine)
     repro_torch.runtime  — protocol registry, the streaming pipeline and
                            its packed multi-tenant ingest

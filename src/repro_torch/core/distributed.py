@@ -35,6 +35,15 @@ Protocols ported so far:
       send set is a row mask — no extra SVD on the hot path.
     * ``LP1`` — leverage-score row sampling: threshold forwarding of
       high-score rows into a coordinator reservoir, FD residual for the rest.
+    * ``HHP1`` — weighted heavy hitters: per-site Misra--Gries summaries,
+      shipped whole on the weight threshold and folded in with ``mg_merge``.
+    * ``QP1`` — quantiles: per-site GK summaries, shipped on a ``1 + eps/4``
+      weight growth and folded in with ``quant_merge``.
+
+The two pair-input kinds (HHP1, QP1) take ``(keys or values, weights)``,
+each a global ``(m * b,)`` tensor, and are not packable: the coordinator
+folds the m shipped summaries one after another, in site order 0..m-1, as
+the reference's static unroll does (neither merge is associative in f32).
 """
 from __future__ import annotations
 
@@ -47,7 +56,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import fd as fdlib
+from repro_torch.core import hh as hhlib
 from repro_torch.core import leverage as levlib
+from repro_torch.core import quantiles as qlib
 from repro_torch.core.comm import CommReport, build_report
 
 __all__ = [
@@ -60,6 +71,16 @@ __all__ = [
     "p2_init",
     "p2_step",
     "p2_query",
+    "HHP1State",
+    "hh_p1_init",
+    "hh_p1_step",
+    "hh_estimates",
+    "hh_w_hat",
+    "QuantP1State",
+    "quant_p1_init",
+    "quant_p1_step",
+    "quant_p1_table",
+    "quant_p1_w_hat",
     "LevP1State",
     "lev_p1_init",
     "lev_p1_step",
@@ -187,9 +208,10 @@ def _on_packs(step):
     return run
 
 
-def _tile(state: fdlib.FDState, m: int) -> fdlib.FDState:
-    """An unstacked FD state repeated over the site axis."""
-    return fdlib.FDState(*(leaf.expand(m, *leaf.shape).clone() for leaf in state))
+def _tile(state, m: int):
+    """An unstacked per-site state (FD, MG or quantile summary) repeated over
+    the site axis."""
+    return type(state)(*(leaf.expand(m, *leaf.shape).clone() for leaf in state))
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +349,205 @@ def p2_step(cfg: ProtocolConfig, st: P2State, rows: torch.Tensor) -> P2State:
 def p2_query(st: P2State, x: torch.Tensor) -> torch.Tensor:
     """Coordinator estimate of ||A x||^2."""
     return fdlib.fd_query(st.coord_fd, x)
+
+
+# ---------------------------------------------------------------------------
+# Weighted heavy hitters, protocol 1 — batched Misra--Gries merge.
+#
+# The HH twin of matrix P1: every site runs a weighted MG_{eps/2} summary
+# over its local (element, weight) stream (all m in one ``mg_scan`` launch);
+# when a site's weight since its last ship crosses ``(eps/2m) * w_hat`` it
+# ships the whole summary, and the coordinator folds shipped summaries in
+# with ``mg_merge``, site by site in order.  A non-sender contributes the
+# empty summary, as in the reference's masked gather.  Message units follow
+# the paper: a shipped summary of ``r`` live counters costs ``r`` item
+# messages plus one scalar, and a ``w_hat`` rebroadcast costs ``m``.
+# ---------------------------------------------------------------------------
+
+
+class HHP1State(NamedTuple):
+    """HH P1 state: per-site MG summaries + the coordinator's MG and totals."""
+    site_mg: hhlib.MGState  # per-site, leading m axis
+    w_i: torch.Tensor  # per-site (m,) f32 — weight since last ship
+    coord_mg: hhlib.MGState
+    w_c: torch.Tensor  # () f32 — weight received at C
+    w_hat: torch.Tensor  # () f32 — broadcast estimate
+    comm: CommCounters
+
+
+def hh_p1_init(cfg: ProtocolConfig, device=None) -> HHP1State:
+    """Initial HH P1 state: all m sites and the coordinator."""
+    cfg = cfg.resolved()
+    device = resolve_device(device)
+    return HHP1State(
+        site_mg=_tile(hhlib.mg_init(cfg.k, device), cfg.m),
+        w_i=torch.zeros(cfg.m, dtype=torch.float32, device=device),
+        coord_mg=hhlib.mg_init(cfg.k, device),
+        w_c=torch.zeros((), dtype=torch.float32, device=device),
+        w_hat=torch.ones((), dtype=torch.float32, device=device),
+        comm=CommCounters.zero(device),
+    )
+
+
+def _site_pairs(cfg: ProtocolConfig, pairs) -> tuple[torch.Tensor, torch.Tensor]:
+    """A global ``(keys, weights)`` pair of (m * b,) tensors as two (m, b):
+    site i gets items [i*b, (i+1)*b), the contiguous split ``shard_map``
+    gives each device."""
+    a, w = pairs
+    if a.ndim != 1 or w.shape != a.shape or a.shape[0] % cfg.m:
+        raise ValueError(
+            f"a super-step wants two (m * b,) tensors with m = {cfg.m}, got "
+            f"{tuple(a.shape)} and {tuple(w.shape)}"
+        )
+    return a.reshape(cfg.m, -1), w.float().reshape(cfg.m, -1)
+
+
+def hh_p1_step(cfg: ProtocolConfig, st: HHP1State, pairs) -> HHP1State:
+    """One super-step on ``(keys i32 (m * b,), weights f32 (m * b,))``; site i
+    takes slice i."""
+    cfg = cfg.resolved()
+    keys, weights = _site_pairs(cfg, pairs)
+    site_mg = hhlib.mg_update_stream(st.site_mg, keys, weights)
+    w_i = st.w_i + weights.sum(-1)
+
+    send = w_i >= (cfg.eps / (2 * cfg.m)) * st.w_hat  # (m,)
+    # Masked ship: a non-sender contributes the empty summary, so the fold
+    # below is "the coordinator merges what was shipped", site by site.
+    pay = hhlib.MGState(
+        keys=torch.where(send[:, None], site_mg.keys, hhlib.EMPTY),
+        counts=torch.where(send[:, None], site_mg.counts, 0.0),
+        weight=torch.where(send, site_mg.weight, 0.0),
+        shrink=torch.where(send, site_mg.shrink, 0.0),
+    )
+    coord = st.coord_mg
+    for j in range(cfg.m):
+        coord = hhlib.mg_merge(coord, hhlib.MGState(*(leaf[j] for leaf in pay)))
+
+    live = (site_mg.keys != hhlib.EMPTY).sum(-1)
+    shipped = torch.where(send, live, 0).sum()
+    n_scalar = send.sum()
+
+    w_c = st.w_c + torch.where(send, w_i, 0.0).sum()
+    w_i = torch.where(send, 0.0, w_i)
+    # Reset shipped site summaries.
+    empty = hhlib.mg_init(cfg.k, keys.device)
+    site_mg = hhlib.MGState(
+        *(torch.where(_per_site(send, a), e, a) for a, e in zip(site_mg, empty))
+    )
+
+    rebroadcast = w_c / st.w_hat > 1.0 + cfg.eps / 2.0
+    w_hat = torch.where(rebroadcast, w_c, st.w_hat)
+    comm = CommCounters(
+        scalar_msgs=st.comm.scalar_msgs + n_scalar.to(torch.int32),
+        row_msgs=st.comm.row_msgs + shipped.to(torch.int32),
+        broadcast_events=st.comm.broadcast_events + rebroadcast.to(torch.int32),
+    )
+    return HHP1State(site_mg, w_i, coord, w_c, w_hat, comm)
+
+
+def hh_estimates(st: HHP1State) -> dict[int, float]:
+    """The coordinator's current ``{element: weight-estimate}`` map."""
+    return hhlib.mg_items(st.coord_mg)
+
+
+def hh_w_hat(st: HHP1State) -> float:
+    """Coordinator estimate of the total stream weight ``W`` (HH frob analog)."""
+    return float(st.w_hat)
+
+
+# ---------------------------------------------------------------------------
+# Distributed quantiles, protocol 1 — batched summary merge.
+#
+# The quantile twin of hh_p1_step: every site maintains a fixed-shape
+# GK-style ``QuantState`` over its local (value, weight) stream (all m
+# inserts in one sort and one ``quant_pack`` launch); when its cumulative
+# weight has grown by a ``1 + eps/4`` factor since the last ship (with an
+# ``eps/(4m) * w_hat`` floor so early items batch up) it ships the whole
+# summary, and the coordinator folds shipped summaries in with
+# ``quant_merge``, site by site in order; a non-sender contributes the
+# all-pad summary.  Message units follow the paper: a shipped summary of
+# ``r`` live tuples costs ``r`` item messages plus one scalar, a ``w_hat``
+# rebroadcast costs m.
+# ---------------------------------------------------------------------------
+
+
+class QuantP1State(NamedTuple):
+    """Quantile P1 state: per-site summaries + the coordinator's summary."""
+    site_q: qlib.QuantState  # per-site, leading m axis
+    w_i: torch.Tensor  # per-site (m,) f32 — cumulative site weight
+    w_pushed: torch.Tensor  # per-site (m,) f32 — cumulative weight at last ship
+    coord_q: qlib.QuantState
+    w_hat: torch.Tensor  # () f32 — broadcast estimate
+    comm: CommCounters
+
+
+def quant_p1_init(cfg: ProtocolConfig, device=None) -> QuantP1State:
+    """Initial quantile P1 state: all m sites and the coordinator."""
+    cfg = cfg.resolved()
+    device = resolve_device(device)
+    return QuantP1State(
+        site_q=_tile(qlib.quant_init(cfg.q_cap, device), cfg.m),
+        w_i=torch.zeros(cfg.m, dtype=torch.float32, device=device),
+        w_pushed=torch.zeros(cfg.m, dtype=torch.float32, device=device),
+        coord_q=qlib.quant_init(cfg.q_cap, device),
+        w_hat=torch.ones((), dtype=torch.float32, device=device),
+        comm=CommCounters.zero(device),
+    )
+
+
+def quant_p1_step(cfg: ProtocolConfig, st: QuantP1State, pairs) -> QuantP1State:
+    """One super-step on ``(values f32 (m * b,), weights f32 (m * b,))``; site
+    i takes slice i."""
+    cfg = cfg.resolved()
+    values, weights = _site_pairs(cfg, pairs)
+    site_q = qlib.quant_insert(st.site_q, values, weights, cfg.eps / 4.0)
+    w_i = st.w_i + weights.sum(-1)
+    unpushed = w_i - st.w_pushed
+
+    send = (w_i >= (1.0 + cfg.eps / 4.0) * st.w_pushed) & (
+        unpushed >= (cfg.eps / (4.0 * cfg.m)) * st.w_hat
+    )
+    pay = qlib.QuantState(
+        values=torch.where(send[:, None], site_q.values, float("inf")),
+        g=torch.where(send[:, None], site_q.g, 0.0),
+        delta=torch.where(send[:, None], site_q.delta, 0.0),
+        wv=torch.where(send[:, None], site_q.wv, 0.0),
+        weight=torch.where(send, site_q.weight, 0.0),
+    )
+    coord = st.coord_q
+    for j in range(cfg.m):
+        coord = qlib.quant_merge(coord, qlib.QuantState(*(leaf[j] for leaf in pay)),
+                                 cfg.eps / 2.0, cfg.q_cap)
+
+    live = torch.isfinite(site_q.values).sum(-1)
+    shipped = torch.where(send, live, 0).sum()
+    n_scalar = send.sum()
+
+    w_pushed = torch.where(send, w_i, st.w_pushed)
+    # Reset shipped site summaries.
+    empty = qlib.quant_init(cfg.q_cap, values.device)
+    site_q = qlib.QuantState(
+        *(torch.where(_per_site(send, a), e, a) for a, e in zip(site_q, empty))
+    )
+
+    rebroadcast = coord.weight / st.w_hat > 1.0 + cfg.eps / 2.0
+    w_hat = torch.where(rebroadcast, coord.weight, st.w_hat)
+    comm = CommCounters(
+        scalar_msgs=st.comm.scalar_msgs + n_scalar.to(torch.int32),
+        row_msgs=st.comm.row_msgs + shipped.to(torch.int32),
+        broadcast_events=st.comm.broadcast_events + rebroadcast.to(torch.int32),
+    )
+    return QuantP1State(site_q, w_i, w_pushed, coord, w_hat, comm)
+
+
+def quant_p1_table(st: QuantP1State) -> np.ndarray:
+    """The coordinator's published ``(n, 2)`` [value, rank-estimate] table."""
+    return qlib.quant_table(st.coord_q)
+
+
+def quant_p1_w_hat(st: QuantP1State) -> float:
+    """Coordinator estimate of the total stream weight (quantile frob analog)."""
+    return float(st.coord_q.weight)
 
 
 # ---------------------------------------------------------------------------
@@ -513,8 +734,10 @@ def lev_p1_lambda(cfg: ProtocolConfig, st: LevP1State) -> float:
 # Runner
 # ---------------------------------------------------------------------------
 
-_INITS = {"P1": p1_init, "P2": p2_init, "LP1": lev_p1_init}
-_STEPS = {"P1": p1_step, "P2": p2_step, "LP1": lev_p1_step}
+_INITS = {"P1": p1_init, "P2": p2_init, "HHP1": hh_p1_init, "QP1": quant_p1_init,
+          "LP1": lev_p1_init}
+_STEPS = {"P1": p1_step, "P2": p2_step, "HHP1": hh_p1_step, "QP1": quant_p1_step,
+          "LP1": lev_p1_step}
 _MATRIX_PROTOCOLS = ("P1", "P2")
 
 
@@ -537,10 +760,14 @@ def protocol_frob(protocol: str, state) -> float:
 
 
 def make_protocol_runner(protocol: str, cfg: ProtocolConfig, device=None):
-    """Return ``(init_state, step)`` for one protocol (``P1``, ``P2``, ``LP1``).
+    """Return ``(init_state, step)`` for one protocol (``P1``, ``P2``, ``LP1``,
+    ``HHP1``, ``QP1``).
 
-    ``step(state, rows)`` consumes a global ``(m * b, d)`` tensor on the
-    state's device; site i takes rows ``[i*b, (i+1)*b)``.  Per-site state
+    For the matrix protocols and ``LP1`` ``step(state, rows)`` consumes a
+    global ``(m * b, d)`` tensor on the state's device; site i takes rows
+    ``[i*b, (i+1)*b)``.  For ``HHP1`` (element keys) and ``QP1`` (quantile
+    values) it consumes a ``(keys or values, weights)`` pair of global
+    ``(m * b,)`` tensors, split the same way.  Per-site state
     leaves carry a leading ``m`` axis, the layout the reference's global
     (sharded) state has, so states and checkpoints line up leaf for leaf.
     """

@@ -19,11 +19,18 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import CudaKernel
 
-__all__ = ["FD_GRAM", "FD_PROJECT", "fd_gram", "fd_project", "operands_on_cpu"]
+__all__ = ["FD_GRAM", "FD_GRAM_BATCHED", "FD_PROJECT", "FD_PROJECT_BATCHED", "fd_gram",
+           "fd_project", "operands_on_cpu"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# One source each serves the reference's single and tenant-batched Pallas
+# kernels; a launch of one buffer (T = 1) counts as the single kernel's, a
+# launch of a stack (T > 1) as the batched one's.
 FD_GRAM = CudaKernel("fd_gram.cu", "fd_gram_launch", [_P, _P, _I, _I, _I])
+FD_GRAM_BATCHED = CudaKernel("fd_gram.cu", "fd_gram_launch", [_P, _P, _I, _I, _I])
 FD_PROJECT = CudaKernel("fd_project.cu", "fd_project_launch", [_P, _P, _P, _P, _I, _I, _I])
+FD_PROJECT_BATCHED = CudaKernel("fd_project.cu", "fd_project_launch",
+                                [_P, _P, _P, _P, _I, _I, _I])
 
 
 def operands_on_cpu(**tensors: torch.Tensor) -> bool:
@@ -57,7 +64,8 @@ def fd_gram(b: torch.Tensor) -> torch.Tensor:
     t, l, d = bs.shape
     g = torch.empty((t, l, l), dtype=torch.float32, device=b.device)
     if g.numel():
-        FD_GRAM.launch(b.device, bs.data_ptr(), g.data_ptr(), t, l, d)
+        (FD_GRAM if t == 1 else FD_GRAM_BATCHED).launch(b.device, bs.data_ptr(), g.data_ptr(),
+                                                        t, l, d)
     return g if b.ndim == 3 else g[0]
 
 
@@ -77,7 +85,7 @@ def fd_project(w: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -> torch.Tenso
         return (ref.ref_fd_project_batched if stacked else ref.ref_fd_project)(w, u, b)
     out = torch.empty_like(b)
     if out.numel():
-        FD_PROJECT.launch(
+        (FD_PROJECT if t == 1 else FD_PROJECT_BATCHED).launch(
             b.device, w.data_ptr(), u.data_ptr(), b.data_ptr(), out.data_ptr(), t, l, d
         )
     return out

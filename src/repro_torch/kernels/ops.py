@@ -12,11 +12,21 @@
 * ``flash_attention`` — causal self-attention with GQA, a sliding window and
   a logit soft-cap: one launch of ``csrc/flash_attention_wgmma.cu`` (bf16,
   on the tensor cores) or of ``csrc/flash_attention.cu`` (f32).
+* ``mg_scan`` — weighted Misra--Gries over an item stream for S summaries at
+  once, one launch of ``csrc/mg_scan.cu`` (the heavy-hitter kind's
+  ``mg_update_stream``; no Pallas kernel: the reference's ``lax.scan``).
+* ``quant_pack`` — the greedy GK compress of T rows of sorted tuples, one
+  launch of ``csrc/quant_pack.cu`` (the quantile kind's ``_quant_pack``; no
+  Pallas kernel: the reference's ``lax.fori_loop``).
 
 Dispatch is by the tensors' device, as in fd_ops.py: CUDA launches the
 kernel or raises, CPU runs the plain version from ``ref.py``.
-``launch_counts`` reads each kernel's launch count (the two flash sources
-count as one kernel); ``reset_launch_counts`` sets them to zero.
+``launch_counts`` reads each kernel's launch count: a launch of one
+buffer or sketch counts as ``fd_gram`` / ``fd_project`` / ``quadform``, of
+a stack as ``fd_gram_batched`` / ``fd_project_batched`` /
+``quadform_packed`` (the reference's two Pallas kernels each), and the two
+flash sources count as one kernel; ``reset_launch_counts`` sets them to
+zero.
 """
 from __future__ import annotations
 
@@ -26,7 +36,15 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import CudaKernel
-from repro_torch.kernels.fd_ops import FD_GRAM, FD_PROJECT, fd_gram, fd_project, operands_on_cpu
+from repro_torch.kernels.fd_ops import (
+    FD_GRAM,
+    FD_GRAM_BATCHED,
+    FD_PROJECT,
+    FD_PROJECT_BATCHED,
+    fd_gram,
+    fd_project,
+    operands_on_cpu,
+)
 
 __all__ = [
     "KERNELS",
@@ -37,13 +55,18 @@ __all__ = [
     "flash_attention",
     "launch_counts",
     "levscore",
+    "mg_scan",
     "quadform",
     "quadform_packed",
+    "quant_pack",
     "reset_launch_counts",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# One source for one sketch (T = 1, counted as quadform) and a packed stack
+# (T > 1, counted as quadform_packed), as for the FD kernels.
 QUADFORM = CudaKernel("quadform.cu", "quadform_launch", [_P, _P, _P, _I, _I, _I, _I])
+QUADFORM_PACKED = CudaKernel("quadform.cu", "quadform_launch", [_P, _P, _P, _I, _I, _I, _I])
 LEVSCORE = CudaKernel("levscore.cu", "levscore_launch", [_P, _P, _P, _P, _L, _I, _I])
 _F = ctypes.c_float
 _FLASH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F]
@@ -57,9 +80,17 @@ _FLASH_BY_DTYPE = {torch.float32: FLASH_ATTENTION, torch.bfloat16: FLASH_ATTENTI
 # its partial scores (0 where it does not split the contraction).
 LEVSCORE_SCRATCH = ("levscore_scratch_floats", [_P, _P, _I, _I])
 
-# Every hand-written kernel of the port, by name, with its sources.
-KERNELS = {"fd_gram": (FD_GRAM,), "fd_project": (FD_PROJECT,), "quadform": (QUADFORM,),
-           "levscore": (LEVSCORE,), "flash_attention": (FLASH_ATTENTION_BF16, FLASH_ATTENTION)}
+MG_SCAN = CudaKernel("mg_scan.cu", "mg_scan_launch", [_P] * 10 + [_I, _I, _I])
+QUANT_PACK = CudaKernel("quant_pack.cu", "quant_pack_launch", [_P] * 9 + [_I, _I, _I])
+
+# Every hand-written kernel of the port by name, one for each Pallas kernel
+# of the reference and one for each of its sequential loops, with its
+# sources.
+KERNELS = {"fd_gram": (FD_GRAM,), "fd_gram_batched": (FD_GRAM_BATCHED,),
+           "fd_project": (FD_PROJECT,), "fd_project_batched": (FD_PROJECT_BATCHED,),
+           "quadform": (QUADFORM,), "quadform_packed": (QUADFORM_PACKED,),
+           "levscore": (LEVSCORE,), "flash_attention": (FLASH_ATTENTION_BF16, FLASH_ATTENTION),
+           "mg_scan": (MG_SCAN,), "quant_pack": (QUANT_PACK,)}
 
 
 def launch_counts() -> dict[str, int]:
@@ -88,7 +119,8 @@ def quadform_packed(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     n = x.shape[1]
     q = torch.empty((t, n), dtype=torch.float32, device=b.device)
     if q.numel():
-        QUADFORM.launch(b.device, b.data_ptr(), x.data_ptr(), q.data_ptr(), t, l, n, d)
+        (QUADFORM if t == 1 else QUADFORM_PACKED).launch(b.device, b.data_ptr(), x.data_ptr(),
+                                                         q.data_ptr(), t, l, n, d)
     return q
 
 
@@ -215,3 +247,69 @@ def fd_spectra(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     lam, u = ref.eigh_descending(fd_gram(b))
     s, w = ref.spectra_weights(lam)
     return s, fd_project(w.contiguous(), u.contiguous(), b)
+
+
+def _int_operands_on(device: torch.device, **tensors: torch.Tensor) -> None:
+    """Check a kernel's int32 operands: contiguous and on ``device``."""
+    for name, t in tensors.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"operands on different devices: {name} on {t.device}, not {device}")
+
+
+def mg_scan(keys, counts, weight, shrink, item_keys, item_weights):
+    """Weighted Misra--Gries over a stream for S summaries at once.
+
+    keys (S, k) int32 (-1 empty), counts (S, k) f32, weight and shrink (S,)
+    f32; item_keys (S, b) int32 and item_weights (S, b) f32, absorbed in
+    order -> new (keys, counts, weight, shrink).  Summary s takes row s of
+    the items.  b = 0 answers the state, without a launch.
+    """
+    s_, k = keys.shape[0], keys.shape[-1]
+    if (keys.ndim != 2 or counts.shape != keys.shape or weight.shape != (s_,)
+            or shrink.shape != (s_,) or item_keys.ndim != 2 or item_keys.shape[0] != s_
+            or item_weights.shape != item_keys.shape or k < 1):
+        raise ValueError(
+            f"mg_scan shape mismatch: keys{tuple(keys.shape)} counts{tuple(counts.shape)} "
+            f"weight{tuple(weight.shape)} shrink{tuple(shrink.shape)} "
+            f"items{tuple(item_keys.shape)} weights{tuple(item_weights.shape)}")
+    on_cpu = operands_on_cpu(counts=counts, weight=weight, shrink=shrink,
+                             item_weights=item_weights)
+    _int_operands_on(counts.device, keys=keys, item_keys=item_keys)
+    if on_cpu:
+        return ref.ref_mg_scan(keys, counts, weight, shrink, item_keys, item_weights)
+    b = item_keys.shape[1]
+    if b == 0 or s_ == 0:
+        return tuple(a.clone() for a in (keys, counts, weight, shrink))
+    out = tuple(torch.empty_like(a) for a in (keys, counts, weight, shrink))
+    MG_SCAN.launch(keys.device, keys.data_ptr(), counts.data_ptr(), weight.data_ptr(),
+                   shrink.data_ptr(), item_keys.data_ptr(), item_weights.data_ptr(),
+                   *(a.data_ptr() for a in out), s_, k, b)
+    return out
+
+
+def quant_pack(v, rmin, rmax, wv, thresh, cap: int):
+    """Greedy GK compress of T rows of sorted interval tuples into ``cap`` slots.
+
+    v, rmin, rmax, wv (T, n) f32, each row sorted by value with ``+inf``
+    pads last; thresh (T,) f32 -> (values, g, delta, wv), each (T, cap).
+    See ``ref.ref_quant_pack`` for the rule.
+    """
+    if (v.ndim != 2 or rmin.shape != v.shape or rmax.shape != v.shape or wv.shape != v.shape
+            or thresh.shape != v.shape[:1] or cap < 1):
+        raise ValueError(
+            f"quant_pack shape mismatch: v{tuple(v.shape)} rmin{tuple(rmin.shape)} "
+            f"rmax{tuple(rmax.shape)} wv{tuple(wv.shape)} thresh{tuple(thresh.shape)} cap={cap}")
+    if operands_on_cpu(v=v, rmin=rmin, rmax=rmax, wv=wv, thresh=thresh):
+        return ref.ref_quant_pack(v, rmin, rmax, wv, thresh, cap)
+    t, n = v.shape
+    out = (torch.full((t, cap), float("inf"), device=v.device),
+           *(torch.zeros(t, cap, device=v.device) for _ in range(3)))
+    if t and n:
+        QUANT_PACK.launch(v.device, v.data_ptr(), rmin.data_ptr(), rmax.data_ptr(),
+                          wv.data_ptr(), thresh.data_ptr(), *(a.data_ptr() for a in out),
+                          t, n, cap)
+    return out

@@ -3,7 +3,10 @@
 The wrappers in ``fd_ops.py`` / ``ops.py`` run these for tensors that lie
 on the CPU; ``chip_smoke.py`` holds each CUDA kernel against them on the
 card.  All products accumulate in f32, as the reference's
-``preferred_element_type=f32`` does.
+``preferred_element_type=f32`` does.  ``ref_mg_scan`` and ``ref_quant_pack``
+are the two sequential loops the reference runs as XLA code (a ``lax.scan``
+and a ``lax.fori_loop``), written step by step with the f32 additions and
+comparisons in the order the reference makes them.
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ __all__ = [
     "ref_fd_shrink",
     "ref_fd_spectra",
     "ref_levscore",
+    "ref_mg_scan",
     "ref_quadform",
     "ref_quadform_packed",
+    "ref_quant_pack",
     "shrink_weights",
     "spectra_weights",
 ]
@@ -184,3 +189,94 @@ def ref_attention(
     probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)  # rows that see no key
     return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
+
+
+def _mg_step(keys, counts, weight, shrink, key, w):
+    """One weighted Misra--Gries update of S summaries: keys, counts (S, k);
+    weight, shrink (S,); one item each, key (S,) int32, w (S,) f32."""
+    rows = torch.arange(keys.shape[0], device=keys.device)
+    hit = keys == key[:, None]
+    any_hit = hit.any(-1)
+    empty = keys == -1
+    any_empty = empty.any(-1)
+    first_empty = empty.to(torch.int32).argmax(-1)  # the first empty slot
+    # Case 1: existing counter.
+    counts_hit = counts + torch.where(hit, w[:, None], 0.0)
+    # Case 2: take an empty slot.
+    keys_ins = keys.index_put((rows, first_empty), key)
+    counts_ins = counts.index_put((rows, first_empty), w)
+    # Case 3: decrement everyone by delta = min(min_count, w); the first
+    # minimal slot takes the key if weight is left over.
+    min_c = counts.amin(-1)
+    delta = torch.minimum(min_c, w)
+    counts_dec = (counts - delta[:, None]).clamp_min(0.0)
+    w_left = w - delta
+    freed = counts.argmin(-1)
+    take = w_left > 0.0
+    keys_dec = keys.index_put((rows, freed), torch.where(take, key, keys[rows, freed]))
+    counts_dec = counts_dec.index_put((rows, freed), torch.where(take, w_left, counts_dec[rows, freed]))
+    new_keys = torch.where(any_hit[:, None], keys,
+                           torch.where(any_empty[:, None], keys_ins, keys_dec))
+    new_counts = torch.where(any_hit[:, None], counts_hit,
+                             torch.where(any_empty[:, None], counts_ins, counts_dec))
+    new_shrink = shrink + torch.where(any_hit | any_empty, 0.0, delta)
+    return new_keys, new_counts, weight + w, new_shrink
+
+
+def ref_mg_scan(keys, counts, weight, shrink, item_keys, item_weights):
+    """Weighted Misra--Gries over a stream, one item at a time, for S summaries.
+
+    keys (S, k) int32 (-1 empty), counts (S, k) f32, weight and shrink (S,)
+    f32; items (S, b) int32 keys and f32 weights, absorbed in order ->
+    the updated (keys, counts, weight, shrink).  Ties go to the first slot:
+    the first empty one takes a new key, and the first minimal one is freed.
+    """
+    state = (keys, counts, weight, shrink)
+    for t in range(item_keys.shape[1]):
+        state = _mg_step(*state, item_keys[:, t], item_weights[:, t])
+    return state
+
+
+def ref_quant_pack(v, rmin, rmax, wv, thresh, cap: int):
+    """Greedy GK compress of T rows of sorted interval tuples into ``cap`` slots.
+
+    v, rmin, rmax, wv (T, n) f32, each row sorted by value with ``+inf``
+    pads last; thresh (T,) f32 -> (values, g, delta, wv), each (T, cap),
+    pads ``+inf`` / 0.  Tuple i folds forward into i + 1 when their values
+    are equal, or when the merged band ``acc + g + d - wv`` of the next stays
+    within ``thresh`` and something was emitted already; the overflow past
+    ``cap`` keeps folding into the last slot.
+    """
+    t, n = v.shape
+    dev = v.device
+    g = (rmin - torch.cat([torch.zeros(t, 1, device=dev), rmin[:, :-1]], 1)).clamp_min(0.0)
+    d = (rmax - rmin).clamp_min(0.0)
+    live = torch.isfinite(v)
+    # Tuple i + 1's quantities at step i (nxt = min(i + 1, n - 1)).
+    has_next = torch.cat([live[:, 1:], torch.zeros(t, 1, dtype=torch.bool, device=dev)], 1)
+    same = has_next & torch.cat([v[:, 1:] == v[:, :-1],
+                                 torch.zeros(t, 1, dtype=torch.bool, device=dev)], 1)
+    g_n, d_n, wv_n = (torch.cat([a[:, 1:], a[:, -1:]], 1) for a in (g, d, wv))
+
+    out_v = torch.full((t, cap), float("inf"), device=dev)
+    out_g, out_d, out_wv = (torch.zeros(t, cap, device=dev) for _ in range(3))
+    rows = torch.arange(t, device=dev)
+    count = torch.zeros(t, dtype=torch.int64, device=dev)
+    acc = torch.zeros(t, device=dev)
+    acc_wv = torch.zeros(t, device=dev)
+    for i in range(n):
+        live_i = live[:, i]
+        acc = acc + torch.where(live_i, g[:, i], 0.0)
+        band = acc + g_n[:, i] + d_n[:, i] - wv_n[:, i]
+        fold = same[:, i] | (has_next[:, i] & (band <= thresh) & (count > 0))
+        emit = live_i & ~fold
+        idx = count.clamp_max(cap - 1)
+        carry_g = torch.where(count >= cap, out_g[:, cap - 1], 0.0)
+        for out, val in ((out_v, v[:, i]), (out_g, acc + carry_g), (out_d, d[:, i]),
+                         (out_wv, wv[:, i] + acc_wv)):
+            out[rows, idx] = torch.where(emit, val, out[rows, idx])
+        count = count + emit.to(torch.int64)
+        acc = torch.where(emit, 0.0, acc)
+        # wv only carries across equal-value folds.
+        acc_wv = torch.where(same[:, i] & live_i, acc_wv + wv[:, i], 0.0)
+    return out_v, out_g, out_d, out_wv

@@ -17,14 +17,22 @@ three ways:
 All paths agree to fp tolerance; every result carries the snapshot's
 additive error bound (``delta_sum`` when known, else ``eps ||A||_F^2``).
 
-``meta["workload"] == "leverage"`` snapshots hold an ``(n, d+2)``
-[row | score | weight] importance-weighted row sample
-(``core.leverage.encode_leverage_snapshot``); each query is a ``(d+1,)``
-``[mode, x]`` row — a subspace query ``sum_i w_i (a_i . x)^2`` served by
-the shared ``quadform`` kernel over the weighted sample, or a ridge
-leverage score served by the ``levscore`` kernel.  Snapshots of the
-heavy-hitter and quantile kinds (``"hh"``, ``"quantile"``) raise
-``NotImplementedError`` until those kinds are ported (ROADMAP item 8).
+Snapshots whose ``meta["workload"]`` is ``"hh"`` hold weighted heavy-hitter
+estimates (an ``(n, 2)`` [element, estimate] matrix, see
+``core.hh.encode_hh_snapshot``) instead of a row sketch; queries against
+them are frequency point-lookups — each "direction" is a single element id
+— answered with the same ``QueryResult`` shape and the paper's ``eps W``
+additive bound.  ``meta["workload"] == "quantile"`` snapshots hold a sorted
+``(n, 2)`` [value, rank-estimate] table
+(``core.quantiles.encode_quantile_snapshot``); each query is a ``(2,)``
+``[mode, arg]`` row — rank-at-value or phi-quantile — answered by one
+searchsorted pass on the host.  ``meta["workload"] == "leverage"``
+snapshots hold an ``(n, d+2)`` [row | score | weight] importance-weighted
+row sample (``core.leverage.encode_leverage_snapshot``); each query is a
+``(d+1,)`` ``[mode, x]`` row — a subspace query ``sum_i w_i (a_i . x)^2``
+served by the shared ``quadform`` kernel over the weighted sample, or a
+ridge leverage score served by the ``levscore`` kernel.  All four kinds
+share one admission path and one packed dispatch loop.
 """
 from __future__ import annotations
 
@@ -78,24 +86,13 @@ def _workload(snap: SketchSnapshot) -> str:
     return snap.meta.get("workload", "matrix")
 
 
-def _require_matrix(snap: SketchSnapshot) -> None:
-    """Refuse what is neither a lookup kind nor matrix: the heavy-hitter and
-    quantile kinds are not ported yet (ROADMAP item 8)."""
-    wl = _workload(snap)
-    if wl != "matrix":
-        raise NotImplementedError(
-            f"tenant {snap.tenant!r}: {wl!r} snapshots are not ported yet "
-            "(the port serves matrix and leverage snapshots; hh and quantile "
-            "wait for ROADMAP item 8)"
-        )
-
-
 class QueryEngine:
     """Serves batched queries against pinned ``SketchStore`` snapshots.
 
     Matrix snapshots ride the quadform paths (kernel / cached / naive) on
     ``device``; ``query_packed`` packs many tenants per kernel launch.
-    Leverage snapshots ride their own weighted quadform / levscore sweeps.
+    HH and quantile snapshots are searchsorted lookups on the host;
+    leverage snapshots ride their own weighted quadform / levscore sweeps.
     """
 
     _FAMILIES = (
@@ -285,8 +282,10 @@ class QueryEngine:
         """Serve every row of ``x`` against the tenant's pinned snapshot.
 
         Matrix tenants: ``||B x_j||^2`` per (d,)-direction row, on the
-        chosen ``path``.  Leverage tenants: one answer per ``(d+1,)``
-        ``[mode, x]`` row (``path`` is ignored; the lookup has one
+        chosen ``path``.  HH tenants: one estimate per element id (``(n,)``
+        or ``(n, 1)``); quantile tenants: one answer per ``(2,)`` ``[mode,
+        arg]`` row; leverage tenants: one answer per ``(d+1,)`` ``[mode, x]``
+        row (``path`` is ignored for these; each lookup has one
         implementation).
         """
         if path not in PATHS:
@@ -313,7 +312,6 @@ class QueryEngine:
                 version=snap.version,
                 path=wl,
             )
-        _require_matrix(snap)
         if x.ndim != 2 or x.shape[1] != snap.matrix.shape[1]:
             raise ValueError(
                 f"directions must be (n, {snap.matrix.shape[1]}), got {x.shape}"
@@ -362,13 +360,11 @@ class QueryEngine:
             x = np.asarray(req.x, np.float32)
             if _workload(snap) in _LOOKUPS:
                 lookups[i] = _workload(snap)
-            else:
-                _require_matrix(snap)
-                if x.ndim != 2 or x.shape[1] != snap.matrix.shape[1]:
-                    raise ValueError(
-                        f"tenant {req.tenant!r}: directions must be "
-                        f"(n, {snap.matrix.shape[1]}), got {x.shape}"
-                    )
+            elif x.ndim != 2 or x.shape[1] != snap.matrix.shape[1]:
+                raise ValueError(
+                    f"tenant {req.tenant!r}: directions must be "
+                    f"(n, {snap.matrix.shape[1]}), got {x.shape}"
+                )
             snaps.append(snap)
             xs.append(x)
 
@@ -412,6 +408,66 @@ class QueryEngine:
         from repro_torch.kernels.ops import quadform
 
         return quadform(f32_on(self.device, snap.matrix), f32_on(self.device, x)).cpu().numpy()
+
+    def _hh_batch(self, snap: SketchSnapshot, x: np.ndarray) -> np.ndarray:
+        """Vectorized HH point-lookup: estimated weight per queried element.
+
+        ``x`` is an ``(n, 1)`` (or ``(n,)``) batch of element ids; unknown
+        elements estimate 0 (the MG underestimate convention).  Ids compare
+        exactly: both sides ride the f32 encoding of ints < 2**24.
+        """
+        q = np.asarray(x, np.float32)
+        if q.ndim == 2 and q.shape[1] == 1:
+            q = q[:, 0]
+        if q.ndim != 1:
+            raise ValueError(
+                f"tenant {snap.tenant!r}: HH queries must be (n,) or (n, 1) "
+                f"element ids, got {np.asarray(x).shape}"
+            )
+        mat = np.asarray(snap.matrix)
+        if mat.shape[0] == 0:
+            return np.zeros(q.shape[0], np.float32)
+        # encode_hh_snapshot stores keys sorted and unique: binary search
+        # instead of a dense (queries x keys) equality matrix.
+        keys, counts = mat[:, 0], mat[:, 1]
+        idx = np.clip(np.searchsorted(keys, q), 0, keys.shape[0] - 1)
+        return np.where(keys[idx] == q, counts[idx], 0.0).astype(np.float32)
+
+    def _quantile_batch(self, snap: SketchSnapshot, x: np.ndarray) -> np.ndarray:
+        """Quantile lookups: each query row is ``(2,)`` ``[mode, arg]``.
+
+        Mode ``QUERY_RANK`` (0) estimates the weighted rank of value
+        ``arg``; mode ``QUERY_QUANTILE`` (1) returns the value whose rank
+        is nearest ``arg * W`` — both one searchsorted pass over the
+        published table, the same code path the live protocols answer
+        from (``core.quantiles.table_rank`` / ``table_quantile``).
+        """
+        from repro_torch.core.quantiles import (
+            QUERY_QUANTILE,
+            QUERY_RANK,
+            table_quantile,
+            table_rank,
+        )
+
+        q = np.asarray(x, np.float32)
+        if q.ndim != 2 or q.shape[1] != 2:
+            raise ValueError(
+                f"tenant {snap.tenant!r}: quantile queries must be (n, 2) "
+                f"[mode, arg] rows, got {np.asarray(x).shape}"
+            )
+        modes, args = q[:, 0], q[:, 1]
+        is_rank = modes == QUERY_RANK
+        is_quant = modes == QUERY_QUANTILE
+        if not np.all(is_rank | is_quant):
+            raise ValueError(
+                f"tenant {snap.tenant!r}: quantile query mode must be "
+                f"{QUERY_RANK} (rank) or {QUERY_QUANTILE} (phi-quantile)"
+            )
+        mat = np.asarray(snap.matrix)
+        out = np.empty(q.shape[0], np.float32)
+        out[is_rank] = table_rank(mat, args[is_rank])
+        out[is_quant] = table_quantile(mat, snap.frob, args[is_quant])
+        return out
 
     def _leverage_batch(self, snap: SketchSnapshot, x: np.ndarray) -> np.ndarray:
         """Leverage lookups: each query row is ``(d+1,)`` ``[mode, x_1..x_d]``.
@@ -513,9 +569,12 @@ class QueryEngine:
 
 
 # Non-matrix workloads: snapshot kinds served by their own per-tenant path
-# (weighted quadform / levscore sweeps for leverage) instead of joining the
-# cross-tenant quadform pack.  One dispatch point for query_batch and
-# query_packed, so adding a kind cannot desynchronize the two paths.
+# (searchsorted for hh/quantile, weighted quadform / levscore sweeps for
+# leverage) instead of joining the cross-tenant quadform pack.  One
+# dispatch point for query_batch and query_packed, so adding a kind cannot
+# desynchronize the two paths.
 _LOOKUPS = {
+    "hh": QueryEngine._hh_batch,
+    "quantile": QueryEngine._quantile_batch,
     "leverage": QueryEngine._leverage_batch,
 }

@@ -2,12 +2,15 @@
 
 Ported so far:
 
-  * registry.py — typed ``SketchProtocol`` / ``LeverageProtocol`` interfaces
+  * registry.py — typed ``SketchProtocol`` / ``HHProtocol`` /
+                  ``QuantileProtocol`` / ``LeverageProtocol`` interfaces
                   + one registration point; the event-driven and super-step
-                  engines of the matrix and leverage kinds.
+                  engines of the matrix, heavy-hitter, quantile and
+                  leverage kinds.
   * policies.py — publish policies and tenant quotas (a copy).
-  * pipeline.py — ``StreamingPipeline``: matrix and leverage tenants'
-                  ingest → publish → packed serve, checkpoints.
+  * pipeline.py — ``StreamingPipeline``: matrix, heavy-hitter, quantile
+                  and leverage tenants' ingest → publish → packed serve,
+                  checkpoints.
   * ingest_packed.py — stacked multi-tenant ingest: same-shape super-step
                   tenants advance in one step (``ingest_many``).
 """
@@ -22,8 +25,10 @@ from repro_torch.runtime.policies import (
     TenantQuota,
 )
 from repro_torch.runtime.registry import (
+    HHProtocol,
     LeverageProtocol,
     ProtocolSpec,
+    QuantileProtocol,
     SketchProtocol,
     create_protocol,
     get_spec,
@@ -35,10 +40,12 @@ from repro_torch.runtime.registry import (
 __all__ = [
     "EveryKSteps",
     "FrobDrift",
+    "HHProtocol",
     "LeverageProtocol",
     "OnDemand",
     "ProtocolSpec",
     "PublishPolicy",
+    "QuantileProtocol",
     "RetryPolicy",
     "SketchProtocol",
     "StreamingPipeline",

@@ -2,50 +2,61 @@
 
 The paper's model is a single continuous loop — sites stream rows, the
 coordinator maintains a sketch, queries are answered at any time.  The
-pipeline owns the whole lifecycle for a fleet of tenants.  Ported so far:
-matrix tracking (paper Section 5) and leverage-score row sampling
-(Boutsidis--Woodruff--Zhong) tenants::
+pipeline owns the whole lifecycle for a fleet of tenants, and a tenant may
+be any workload kind in the registry: matrix tracking (paper Section 5),
+weighted heavy hitters (Section 4), distributed quantiles (Yi--Zhang), or
+leverage-score row sampling (Boutsidis--Woodruff--Zhong)::
 
     pipeline = StreamingPipeline(m=8, eps=0.02, policy=EveryKSteps(4))
     pipeline.add_tenant("run-a", d=1024)                     # matrix
+    pipeline.add_hh_tenant("clicks", eps=0.05, engine="shard")
+    pipeline.add_quantile_tenant("latency", eps=0.02, engine="shard")
     pipeline.add_leverage_tenant("rowspace", d=1024, engine="shard")
 
     pipeline.ingest("run-a", rows)         # super-step + policy publish
+    pipeline.ingest("clicks", pairs)       # (n, 2) [element, weight] rows
+    pipeline.ingest("latency", samples)    # (n, 2) [value, weight] rows
     pipeline.ingest("rowspace", rows)      # (n, d) rows, like matrix
     t = pipeline.submit("run-a", x, deadline_s=0.005)
+    e = pipeline.submit("clicks", np.array([element_id], np.float32))
+    q = pipeline.submit("latency", quantile_query(0.99))
     s = pipeline.submit("rowspace", subspace_query(x))
     pipeline.flush()                       # packed sweep
     estimate, bound, version = t.result()
 
 It is the reference's ``runtime/pipeline.py`` with ``m`` and ``device``
-where the reference takes a mesh: the m sites of every tenant are the
-site axis of one device, ``None`` meaning the CUDA card (pass
-``device="cpu"`` for the plain PyTorch versions of the kernels).
+where the reference takes a mesh: the m sites of every super-step tenant
+are the site axis of one device, ``None`` meaning the CUDA card (pass
+``device="cpu"`` for the plain PyTorch versions of the kernels).  The event
+engines are host simulators, as in the reference.
 
 Ingest drives the tenant's protocol one super-step and asks its
 ``PublishPolicy`` whether the live state drifted enough to become a new
 immutable ``SketchStore`` version (matrix tenants publish their sketch B,
-leverage tenants their [row | score | weight] sample).  Queries are
-admitted through a ``PackedQueryService`` under per-tenant
-``TenantQuota``s: overflow is shed with a typed error, and each dispatch
-sweep packs tenants in priority order — matrix batches that share (l, d)
-ride one packed quadform launch, leverage subspace/score queries ride
-weighted quadform / levscore sweeps.  Deadlines are held either
-cooperatively (every ``ingest`` pumps ``poll()``) or by a ``ServicePump``
-background thread the pipeline owns — pass ``pump_interval_s`` (or call
+HH tenants their encoded estimate table, quantile tenants their sorted
+[value, rank] table, leverage tenants their [row | score | weight]
+sample).  Queries are admitted through a ``PackedQueryService`` under
+per-tenant ``TenantQuota``s: overflow is shed with a typed error, and each
+dispatch sweep packs tenants in priority order — matrix batches that share
+(l, d) ride one packed quadform launch, HH and quantile lookups ride the
+same sweep without a kernel, leverage subspace/score queries ride weighted
+quadform / levscore sweeps.  Deadlines are held either cooperatively
+(every ``ingest`` pumps ``poll()``) or by a ``ServicePump`` background
+thread the pipeline owns — pass ``pump_interval_s`` (or call
 ``start_pump``); ``close()`` (or the context manager) stops it.
 
 ``ingest_many`` drives many tenants in waves: same-config super-step
-tenants advance together in one stacked step (``runtime.ingest_packed``).
-``save``/``load`` persist the *whole* pipeline — published store versions
-and every tenant's live protocol state — through ``repro_torch.ckpt`` in
-the reference's format, so a restarted coordinator resumes ingest
-mid-stream and answers identically, and each package loads the other's
-checkpoints; ``export_tenant``/``import_tenant`` move one tenant.
+tenants of the row-input kinds advance together in one stacked step
+(``runtime.ingest_packed``); HH and quantile tenants step serially, as in
+the reference.  ``save``/``load`` persist the *whole* pipeline — published
+store versions and every tenant's live protocol state — through
+``repro_torch.ckpt`` in the reference's format, so a restarted coordinator
+resumes ingest mid-stream and answers identically, and each package loads
+the other's checkpoints; ``export_tenant``/``import_tenant`` move one
+tenant.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: heavy-hitter and quantile tenants and their lookups
-(item 8) and windowed tenants (item 10).
+Not ported yet: windowed tenants, which raise ``NotImplementedError``
+naming their ROADMAP item (10).
 """
 from __future__ import annotations
 
@@ -84,7 +95,7 @@ class TenantStats(NamedTuple):
     latest_version: int | None
     live_frob: float  # live stream-mass estimate ||A||_F^2
     comm_total: int  # protocol messages spent (paper units)
-    workload: str = "matrix"  # "matrix" | "leverage"
+    workload: str = "matrix"  # "matrix" | "hh" | "quantile" | "leverage"
 
 
 class _MatrixAdapter:
@@ -225,6 +236,40 @@ class _RegistryAdapter:
     def target(self):
         """The wrapped protocol (what ``pipeline.tracker()`` returns)."""
         return self.proto
+
+
+class _HHAdapter(_RegistryAdapter):
+    """Registry adapter for ``HHProtocol`` tenants."""
+
+    workload = "hh"
+
+    def check_query(self, x: np.ndarray) -> None:
+        """Reject wrong-shape queries at the submitter (see pipeline.submit)."""
+        if x.shape != (1,):
+            raise ValueError(
+                f"HH tenants take a (1,) element id, got shape {x.shape}"
+            )
+
+
+class _QuantileAdapter(_RegistryAdapter):
+    """Registry adapter for ``QuantileProtocol`` tenants."""
+
+    workload = "quantile"
+
+    def check_query(self, x: np.ndarray) -> None:
+        """Reject wrong-shape queries at the submitter (see pipeline.submit)."""
+        from repro_torch.core.quantiles import QUERY_QUANTILE, QUERY_RANK
+
+        if x.shape != (2,):
+            raise ValueError(
+                f"quantile tenants take a (2,) [mode, arg] query, got shape "
+                f"{x.shape} (use core.quantiles.rank_query / quantile_query)"
+            )
+        if x[0] not in (QUERY_RANK, QUERY_QUANTILE):
+            raise ValueError(
+                f"quantile query mode must be {QUERY_RANK} (rank) or "
+                f"{QUERY_QUANTILE} (phi-quantile), got {x[0]}"
+            )
 
 
 class _LeverageAdapter(_RegistryAdapter):
@@ -520,13 +565,74 @@ class StreamingPipeline:
         self._register(tenant, _LeverageAdapter(proto, kw), policy, quota)
         return proto
 
-    def add_hh_tenant(self, tenant: str, **kw):
-        """Heavy-hitter tenants wait for the heavy-hitter kind."""
-        _not_ported("add_hh_tenant (heavy-hitter tenants)", 8)
+    def _add_pair_tenant(self, tenant: str, kind: str, adapter_cls, eps, protocol, engine,
+                         policy, quota, kw):
+        """Register an HH or quantile tenant (the two pair-input kinds)."""
+        from repro_torch.runtime.registry import create_protocol
 
-    def add_quantile_tenant(self, tenant: str, **kw):
-        """Quantile tenants wait for the quantile kind."""
-        _not_ported("add_quantile_tenant (quantile tenants)", 8)
+        if tenant in self._tenants:
+            raise ValueError(f"tenant {tenant!r} already registered")
+        if engine not in ("event", "shard"):
+            what = "HH" if kind == "hh" else kind
+            raise ValueError(f"unknown {what} engine {engine!r}; choose 'event' or 'shard'")
+        eps = self.default_eps if eps is None else eps
+        # The recorded kw is what ``load`` passes back, as the reference
+        # records it: the event engine's m, not the super-step engine's.
+        kw = dict(kw)
+        if engine == "shard":
+            proto = create_protocol(protocol, engine="shard", kind=kind, m=self.m, eps=eps,
+                                    device=self.device, **kw)
+        else:
+            kw.setdefault("m", self.m)
+            proto = create_protocol(protocol, engine="event", kind=kind, eps=eps, **kw)
+        self._register(tenant, adapter_cls(proto, kw), policy, quota)
+        return proto
+
+    def add_hh_tenant(
+        self,
+        tenant: str,
+        *,
+        eps: float | None = None,
+        protocol: str = "P1",
+        engine: str = "event",
+        policy: PublishPolicy | None = None,
+        quota: TenantQuota | None = None,
+        **kw,
+    ):
+        """Register a weighted heavy-hitter tenant; returns its protocol.
+
+        ``engine="event"`` runs the paper-exact simulator on the host (``m``
+        defaults to the pipeline's; pass ``m=...`` to override);
+        ``engine="shard"`` runs the MG-merge super-step engine with its
+        sites on the pipeline's device.  Extra ``kw`` (``k``, ``s``,
+        ``seed``) pass through to the registered protocol factory and are
+        recorded so ``load`` rebuilds the tenant identically.
+        """
+        return self._add_pair_tenant(tenant, "hh", _HHAdapter, eps, protocol, engine, policy,
+                                     quota, kw)
+
+    def add_quantile_tenant(
+        self,
+        tenant: str,
+        *,
+        eps: float | None = None,
+        protocol: str = "P1",
+        engine: str = "event",
+        policy: PublishPolicy | None = None,
+        quota: TenantQuota | None = None,
+        **kw,
+    ):
+        """Register a distributed-quantile tenant; returns its protocol.
+
+        ``engine="event"`` runs the paper-style simulator on the host (``m``
+        defaults to the pipeline's; pass ``m=...`` to override);
+        ``engine="shard"`` runs the summary-merge super-step engine with its
+        sites on the pipeline's device.  Extra ``kw`` (``s``, ``q_cap``,
+        ``seed``) pass through to the registered protocol factory and are
+        recorded so ``load`` rebuilds the tenant identically.
+        """
+        return self._add_pair_tenant(tenant, "quantile", _QuantileAdapter, eps, protocol,
+                                     engine, policy, quota, kw)
 
     def add_windowed_tenant(self, tenant: str, **kw):
         """Windowed tenants wait for the window layer."""
@@ -541,7 +647,18 @@ class StreamingPipeline:
         quota: TenantQuota | None,
     ) -> None:
         """Rebuild one tenant from its recorded ``ctor_meta`` (load/import)."""
-        if workload == "leverage":
+        if workload in ("hh", "quantile"):
+            add = self.add_hh_tenant if workload == "hh" else self.add_quantile_tenant
+            add(
+                tenant,
+                eps=float(ctor["eps"]),
+                protocol=str(ctor["protocol"]),
+                engine=str(ctor["engine"]),
+                policy=policy,
+                quota=quota,
+                **ctor["kw"],
+            )
+        elif workload == "leverage":
             self.add_leverage_tenant(
                 tenant,
                 int(ctor["d"]),
@@ -561,8 +678,6 @@ class StreamingPipeline:
                 policy=policy,
                 quota=quota,
             )
-        elif workload in ("hh", "quantile"):
-            _not_ported(f"{workload} tenants", 8)
         elif workload == "windowed":
             _not_ported("windowed tenants", 10)
         else:
@@ -726,7 +841,8 @@ class StreamingPipeline:
         return sorted(self._tenants)
 
     def workload(self, tenant: str) -> str:
-        """The tenant's workload kind (``"matrix"`` or ``"leverage"``)."""
+        """The tenant's workload kind (``"matrix"``, ``"hh"``, ``"quantile"``
+        or ``"leverage"``)."""
         return self._tenant(tenant).adapter.workload
 
     def tracker(self, tenant: str):
@@ -756,7 +872,10 @@ class StreamingPipeline:
 
         Matrix and leverage tenants take an (n, d) row batch (numpy or a
         tensor; a tensor on the pipeline's device is never copied through
-        the host).  ``ts`` belongs to windowed tenants and is refused here.
+        the host), HH tenants an (n, 2) [element, weight] batch, quantile
+        tenants an (n, 2) [value, weight] batch (or, for both, a ``(keys or
+        values, weights)`` pair of 1-D arrays).  ``ts`` belongs to windowed
+        tenants and is refused here.
         Returns the new ``SketchSnapshot`` if the policy fired, else None.
         When no ``ServicePump`` is running this also pumps the packed
         service's deadlines cooperatively, so a pure ingest loop still
@@ -770,10 +889,17 @@ class StreamingPipeline:
             self._m_ingest["ingest_s"].inc(self.obs.clock() - t0)
             self._m_ingest["serial_steps"].inc()
             self._m_ingest["batches"].inc()
-            self._m_ingest["rows"].inc(len(rows))
+            self._m_ingest["rows"].inc(self._batch_len(rows))
             snap = self._post_ingest(tenant, t)
         self._pump_or_poll()
         return snap
+
+    @staticmethod
+    def _batch_len(rows) -> int:
+        """Items in one ingest batch ((n, ...) array or (keys, weights))."""
+        if isinstance(rows, tuple):
+            rows = rows[0]
+        return int(rows.shape[0]) if hasattr(rows, "shape") else len(rows)
 
     def ingest_many(self, batches: Iterable[tuple], *, packed: bool = True) -> int:
         """Drive interleaved tenants: ``[(tenant, rows), ...]``; returns the
@@ -831,7 +957,7 @@ class StreamingPipeline:
         for name, rows, ts in wave:
             t = self._tenant(name)
             sig = pack_signature(t.adapter)
-            n = len(rows)
+            n = self._batch_len(rows)
             if ts is None and sig is not None and n and n % sig[1].m == 0:
                 groups.setdefault(sig, []).append((name, t, rows))
             else:
@@ -860,7 +986,7 @@ class StreamingPipeline:
                 t.adapter.ingest(rows, ts=ts)
                 m["serial_steps"].inc()
                 m["batches"].inc()
-                m["rows"].inc(len(rows))
+                m["rows"].inc(self._batch_len(rows))
                 snaps.append(self._post_ingest(name, t))
             m["ingest_s"].inc(self.obs.clock() - t0)
             fresh = [s for s in snaps if s is not None]
@@ -929,9 +1055,11 @@ class StreamingPipeline:
     def submit(self, tenant: str, x, *, deadline_s: float | None = None) -> QueryTicket:
         """Admit one query for a tenant into the packed service.
 
-        Matrix tenants take a (d,) direction; leverage tenants a (d+1,)
-        [mode, x] row (see ``core.leverage.subspace_query`` /
-        ``score_query``).  The tenant must have at least one published
+        Matrix tenants take a (d,) direction; HH tenants a (1,) element
+        id; quantile tenants a (2,) [mode, arg] row (see
+        ``core.quantiles.rank_query`` / ``quantile_query``); leverage
+        tenants a (d+1,) [mode, x] row (see ``core.leverage.subspace_query``
+        / ``score_query``).  The tenant must have at least one published
         snapshot, and ``x`` must match the tenant's workload shape:
         admitting a query nothing can answer would poison every later
         packed flush (the service keeps failing batches pending by
@@ -956,13 +1084,40 @@ class StreamingPipeline:
         """Serve everything pending in capped priority-ordered sweeps."""
         return self.service.flush()
 
-    def heavy_hitters(self, tenant: str, phi: float, *, version: int | None = None):
-        """Heavy-hitter sets wait for the heavy-hitter kind."""
-        _not_ported("heavy_hitters", 8)
+    def heavy_hitters(
+        self, tenant: str, phi: float, *, version: int | None = None
+    ) -> list[int]:
+        """The paper's phi-heavy-hitter set from a published HH snapshot.
 
-    def quantiles(self, tenant: str, phis, *, version: int | None = None):
-        """Quantile lookups wait for the quantile kind."""
-        _not_ported("quantiles", 8)
+        Returns every element whose published estimate crosses the
+        ``(phi - eps/2) hat{W}`` threshold (Section 4's no-false-negative
+        rule), read from the pinned store version — the same data packed
+        queries are answered from, so restart recovery covers it too.
+        """
+        from repro_torch.core.hh import decode_hh_snapshot, threshold_heavy_hitters
+
+        snap = self.store.get(tenant, version)
+        if snap.meta.get("workload") != "hh":
+            raise ValueError(f"tenant {tenant!r} is not a heavy-hitter tenant")
+        return threshold_heavy_hitters(
+            decode_hh_snapshot(snap.matrix), snap.frob, snap.eps, phi
+        )
+
+    def quantiles(
+        self, tenant: str, phis, *, version: int | None = None
+    ) -> np.ndarray:
+        """Eps-approximate phi-quantile values from a published snapshot.
+
+        Reads the pinned store version — the same sorted [value, rank]
+        table packed queries are answered from, so restart recovery
+        covers it too.
+        """
+        from repro_torch.core.quantiles import table_quantile
+
+        snap = self.store.get(tenant, version)
+        if snap.meta.get("workload") != "quantile":
+            raise ValueError(f"tenant {tenant!r} is not a quantile tenant")
+        return table_quantile(snap.matrix, snap.frob, phis)
 
     def sampled_rows(
         self, tenant: str, *, version: int | None = None

@@ -2,10 +2,10 @@
 
 The reference registers every (kind, engine, protocol) implementation here
 and its consumers (``DistributedMatrixTracker``, the streaming pipeline,
-benchmarks) construct protocols through it.  Ported so far: the matrix and
-leverage workload interfaces, each on the event-driven engine
-(``core/protocols.py``, ``core/leverage.py``) and the super-step engine
-(``core/distributed.py``)::
+benchmarks) construct protocols through it.  Ported: the matrix,
+heavy-hitter, quantile and leverage workload interfaces, each on the
+event-driven engine (``core/protocols.py``, ``core/quantiles.py``,
+``core/leverage.py``) and the super-step engine (``core/distributed.py``)::
 
     SketchProtocol
         step(rows, sites=None)   absorb a batch of stream rows
@@ -13,6 +13,22 @@ leverage workload interfaces, each on the event-driven engine
         frob_estimate()          coordinator estimate of ||A||_F^2
         comm_report()            uniform CommReport (paper message units)
         query(x) / query_batch() ||B x||^2 via the shared quadform kernel
+
+    HHProtocol
+        step(pairs, sites=None)  absorb an (n, 2) [element, weight] batch
+        estimates()              coordinator {element: weight-estimate} map
+        total_weight()           coordinator estimate of the stream mass W
+        estimate(keys)           vectorized point lookups
+        heavy_hitters(phi)       the paper's (phi - eps/2) W threshold set
+        snapshot_matrix()        publishable (n, 2) encoding for the store
+
+    QuantileProtocol
+        step(pairs, sites=None)  absorb an (n, 2) [value, weight] batch
+        table()                  coordinator (k, 2) [value, rank] table
+        total_weight()           coordinator estimate of the stream mass W
+        rank(values)             vectorized weighted-rank estimates
+        quantile(phis)           vectorized eps-approximate phi-quantiles
+        snapshot_matrix()        publishable (n, 2) encoding for the store
 
     LeverageProtocol
         step(rows, sites=None)   absorb an (n, d) batch of stream rows
@@ -23,13 +39,13 @@ leverage workload interfaces, each on the event-driven engine
         score_batch(xs)          ridge leverage scores via ops.levscore
         snapshot_matrix()        publishable (n, d+2) encoding for the store
 
-Both also speak the pipeline checkpoint contract — ``state_payload()`` /
+All also speak the pipeline checkpoint contract — ``state_payload()`` /
 ``restore_payload()`` — with the reference's layout: the super-step
 engine's state as the reference's flattened leaves, the event engines'
 as their JSON-able ``state_dict``, so a payload taken from the reference
 restores here and vice versa.  The super-step engines also speak the
-packed-ingest contract (``pack_key`` / ``apply_packed``, a lazy ``state``).  The heavy-hitter and quantile kinds and
-the windowed flavours are not ported yet.
+packed-ingest contract (``pack_key`` / ``apply_packed``, a lazy ``state``);
+only the row-input kinds pack.  The windowed flavours are not ported yet.
 """
 from __future__ import annotations
 
@@ -44,14 +60,22 @@ from repro_torch import f32_on, resolve_device
 from repro_torch.core import distributed as dist
 from repro_torch.core import leverage as lev
 from repro_torch.core import protocols as event
+from repro_torch.core import quantiles as quant
 from repro_torch.core.comm import CommReport
+from repro_torch.core.hh import encode_hh_snapshot
 
 __all__ = [
     "SketchProtocol",
+    "HHProtocol",
+    "QuantileProtocol",
     "LeverageProtocol",
     "EventProtocol",
+    "EventHHProtocol",
+    "EventQuantileProtocol",
     "EventLeverageProtocol",
     "ShardProtocol",
+    "ShardHHProtocol",
+    "ShardQuantileProtocol",
     "ShardLeverageProtocol",
     "ProtocolSpec",
     "register_protocol",
@@ -147,6 +171,150 @@ class SketchProtocol(_StatefulStream, abc.ABC):
     def query(self, x: np.ndarray) -> float:
         """Single-direction ``||B x||^2`` over the shared quadform path."""
         return float(self.query_batch(np.asarray(x)[None, :])[0])
+
+
+class HHProtocol(_StatefulStream, abc.ABC):
+    """Uniform weighted heavy-hitter interface over every engine."""
+
+    def __init__(self, name: str, engine: str, m: int, eps: float):
+        super().__init__(name, engine, "hh", m, eps)
+
+    @staticmethod
+    def split_pairs(pairs) -> tuple[np.ndarray, np.ndarray]:
+        """Normalize an ingest batch to ``(keys int64, weights float64)``.
+
+        Accepts an ``(n, 2)`` array of [element, weight] rows (the pipeline
+        wire format — element ids must stay in [0, 2**24) to survive f32) or
+        an explicit ``(keys, weights)`` pair of 1-D arrays.  Negative ids
+        are rejected: -1 is the MG empty-slot sentinel in the shard engine,
+        so letting one through would silently corrupt the sketch.
+        """
+        if isinstance(pairs, tuple):
+            keys, weights = pairs
+        else:
+            arr = np.asarray(pairs)
+            if arr.ndim != 2 or arr.shape[1] != 2:
+                raise ValueError(
+                    f"HH ingest batch must be (n, 2) [element, weight] rows or a "
+                    f"(keys, weights) tuple, got shape {arr.shape}"
+                )
+            keys, weights = arr[:, 0], arr[:, 1]
+        keys = np.asarray(keys).astype(np.int64)
+        if keys.size and not (0 <= int(keys.min()) and int(keys.max()) < 1 << 24):
+            raise ValueError(
+                "HH element ids must be in [0, 2**24): negative ids collide with "
+                "the MG empty-slot sentinel, larger ones don't survive the f32 "
+                "snapshot encoding"
+            )
+        return keys, np.asarray(weights, np.float64)
+
+    @abc.abstractmethod
+    def step(self, pairs, sites: np.ndarray | None = None) -> None:
+        """Absorb a batch of weighted elements (continuing prior state)."""
+
+    @abc.abstractmethod
+    def estimates(self) -> dict[int, float]:
+        """The coordinator's current ``{element: weight-estimate}`` map."""
+
+    @abc.abstractmethod
+    def total_weight(self) -> float:
+        """Coordinator estimate of the total stream weight ``W``."""
+
+    @abc.abstractmethod
+    def comm_report(self) -> CommReport:
+        """Messages spent so far, in the paper's units."""
+
+    # -- queries ------------------------------------------------------------
+
+    def estimate(self, keys) -> np.ndarray:
+        """Vectorized point lookups: estimated weight per queried element."""
+        est = self.estimates()
+        flat = np.asarray(keys).ravel()
+        return np.array([est.get(int(e), 0.0) for e in flat], np.float32)
+
+    def heavy_hitters(self, phi: float) -> list[int]:
+        """Elements with ``hat{W}_e >= (phi - eps/2) hat{W}`` (paper Sec. 4)."""
+        from repro_torch.core.hh import threshold_heavy_hitters
+
+        return threshold_heavy_hitters(
+            self.estimates(), self.total_weight(), self.eps, phi
+        )
+
+    def snapshot_matrix(self) -> np.ndarray:
+        """Publishable ``(n, 2)`` [element, estimate] encoding of the state."""
+        return encode_hh_snapshot(self.estimates())
+
+
+class QuantileProtocol(_StatefulStream, abc.ABC):
+    """Uniform distributed-quantile interface over every engine."""
+
+    def __init__(self, name: str, engine: str, m: int, eps: float):
+        super().__init__(name, engine, "quantile", m, eps)
+
+    @staticmethod
+    def split_pairs(pairs) -> tuple[np.ndarray, np.ndarray]:
+        """Normalize an ingest batch to ``(values f64, weights f64)``.
+
+        Accepts an ``(n, 2)`` array of [value, weight] rows (the pipeline
+        wire format) or an explicit ``(values, weights)`` pair of 1-D
+        arrays.  Values must be finite *as float32* (the summaries and
+        the published table are f32; a value that rounds to ``+/-inf``
+        would collide with the jit summary's empty-slot sentinel and be
+        silently dropped) and weights non-negative.
+        """
+        if isinstance(pairs, tuple):
+            values, weights = pairs
+        else:
+            arr = np.asarray(pairs)
+            if arr.ndim != 2 or arr.shape[1] != 2:
+                raise ValueError(
+                    f"quantile ingest batch must be (n, 2) [value, weight] rows "
+                    f"or a (values, weights) tuple, got shape {arr.shape}"
+                )
+            values, weights = arr[:, 0], arr[:, 1]
+        values = np.asarray(values, np.float64)
+        weights = np.asarray(weights, np.float64)
+        if values.size and not np.all(
+            np.isfinite(values) & (np.abs(values) <= np.finfo(np.float32).max)
+        ):
+            raise ValueError(
+                "quantile values must be finite in float32: +/-inf (incl. "
+                "f32 overflow) collides with the summary's empty-slot "
+                "sentinel and NaN cannot be ranked"
+            )
+        if weights.size and (not np.all(np.isfinite(weights)) or weights.min() < 0):
+            raise ValueError("quantile weights must be finite and >= 0")
+        return values, weights
+
+    @abc.abstractmethod
+    def step(self, pairs, sites: np.ndarray | None = None) -> None:
+        """Absorb a batch of weighted values (continuing prior state)."""
+
+    @abc.abstractmethod
+    def table(self) -> np.ndarray:
+        """The coordinator's ``(k, 2)`` [value, rank-estimate] table."""
+
+    @abc.abstractmethod
+    def total_weight(self) -> float:
+        """Coordinator estimate of the total stream weight ``W``."""
+
+    @abc.abstractmethod
+    def comm_report(self) -> CommReport:
+        """Messages spent so far, in the paper's units."""
+
+    # -- queries: one searchsorted path for every engine and the serving ----
+
+    def rank(self, values) -> np.ndarray:
+        """Vectorized weighted-rank estimates (error <= eps W)."""
+        return quant.table_rank(self.table(), values)
+
+    def quantile(self, phis) -> np.ndarray:
+        """Vectorized eps-approximate phi-quantile values."""
+        return quant.table_quantile(self.table(), self.total_weight(), phis)
+
+    def snapshot_matrix(self) -> np.ndarray:
+        """Publishable sorted ``(n, 2)`` [value, rank] encoding of the state."""
+        return quant.encode_quantile_snapshot(self.table())
 
 
 class LeverageProtocol(_StatefulStream, abc.ABC):
@@ -305,7 +473,11 @@ def create_protocol(
     eps=0.02)`` — m sites on the site axis of one device.
     Leverage:      pass ``kind="leverage"`` (streams are (n, d) row batches
     like matrix tracking; see ``LeverageProtocol``).
-    Every factory takes ``device=`` (``None``: the CUDA card).
+    HH / quantile: pass ``kind="hh"`` / ``kind="quantile"`` (streams are
+    (n, 2) [element or value, weight] batches).
+    Every super-step factory and the matrix and leverage event factories
+    take ``device=`` (``None``: the CUDA card); the HH and quantile event
+    engines are numpy simulators on the host and take none.
     """
     return get_spec(name, engine, kind).factory(**kw)
 
@@ -353,6 +525,114 @@ class EventProtocol(SketchProtocol):
     def comm_report(self) -> CommReport:
         """Messages spent so far, in the paper's units."""
         return self._stream.comm.report(self.m)
+
+
+class EventHHProtocol(HHProtocol):
+    """Paper-exact event-at-a-time HH engine behind the uniform interface."""
+
+    def __init__(self, name: str, stream_cls, *, m: int, eps: float,
+                 seed: int = 0, **kw: Any):
+        super().__init__(name, "event", m, eps)
+        self._rng = np.random.default_rng(seed)
+        self._stream = stream_cls(m, eps, self._rng, **kw)
+        self._rr = 0  # round-robin cursor for site-less feeds
+        self._cached_result: event.HHResult | None = None
+
+    def step(self, pairs, sites: np.ndarray | None = None) -> None:
+        """Absorb an (n, 2) [element, weight] batch (round-robin if site-less)."""
+        keys, weights = self.split_pairs(pairs)
+        if sites is None:
+            sites = (np.arange(keys.shape[0]) + self._rr) % self.m
+            self._rr = int((self._rr + keys.shape[0]) % self.m)
+        self._stream.step(keys, weights, np.asarray(sites))
+        self.rows_seen += int(keys.shape[0])
+        self._cached_result = None
+
+    def _result(self) -> event.HHResult:
+        if self._cached_result is None:
+            self._cached_result = self._stream.result()
+        return self._cached_result
+
+    def estimates(self) -> dict[int, float]:
+        """The coordinator's current estimate map."""
+        return dict(self._result().estimates)
+
+    def total_weight(self) -> float:
+        """Coordinator estimate of the total stream weight."""
+        return float(self._result().w_hat)
+
+    def comm_report(self) -> CommReport:
+        """Messages spent so far, in the paper's units."""
+        return self._stream.comm.report(self.m)
+
+    def state_payload(self) -> tuple[dict[str, np.ndarray], dict]:
+        """Full stream state as JSON-able meta (HH state is all small)."""
+        return {}, {
+            "stream": self._stream.state_dict(),
+            "rr": self._rr,
+            "rows_seen": self.rows_seen,
+        }
+
+    def restore_payload(self, arrays: dict[str, np.ndarray], meta: dict) -> None:
+        """Restore a ``state_payload`` capture bit-identically."""
+        self._stream.load_state(meta["stream"])
+        self._rr = int(meta["rr"])
+        self.rows_seen = int(meta["rows_seen"])
+        self._cached_result = None
+
+
+class EventQuantileProtocol(QuantileProtocol):
+    """Paper-exact event-at-a-time quantile engine behind the interface."""
+
+    def __init__(self, name: str, stream_cls, *, m: int, eps: float,
+                 seed: int = 0, **kw: Any):
+        super().__init__(name, "event", m, eps)
+        self._rng = np.random.default_rng(seed)
+        self._stream = stream_cls(m, eps, self._rng, **kw)
+        self._rr = 0  # round-robin cursor for site-less feeds
+        self._cached_result: quant.QuantileResult | None = None
+
+    def step(self, pairs, sites: np.ndarray | None = None) -> None:
+        """Absorb an (n, 2) [value, weight] batch (round-robin if site-less)."""
+        values, weights = self.split_pairs(pairs)
+        if sites is None:
+            sites = (np.arange(values.shape[0]) + self._rr) % self.m
+            self._rr = int((self._rr + values.shape[0]) % self.m)
+        self._stream.step(values, weights, np.asarray(sites))
+        self.rows_seen += int(values.shape[0])
+        self._cached_result = None
+
+    def _result(self) -> quant.QuantileResult:
+        if self._cached_result is None:
+            self._cached_result = self._stream.result()
+        return self._cached_result
+
+    def table(self) -> np.ndarray:
+        """The coordinator's current table."""
+        return np.asarray(self._result().table)
+
+    def total_weight(self) -> float:
+        """Coordinator estimate of the total stream weight."""
+        return float(self._result().w_hat)
+
+    def comm_report(self) -> CommReport:
+        """Messages spent so far, in the paper's units."""
+        return self._stream.comm.report(self.m)
+
+    def state_payload(self) -> tuple[dict[str, np.ndarray], dict]:
+        """Full stream state as JSON-able meta (quantile state is small)."""
+        return {}, {
+            "stream": self._stream.state_dict(),
+            "rr": self._rr,
+            "rows_seen": self.rows_seen,
+        }
+
+    def restore_payload(self, arrays: dict[str, np.ndarray], meta: dict) -> None:
+        """Restore a ``state_payload`` capture bit-identically."""
+        self._stream.load_state(meta["stream"])
+        self._rr = int(meta["rr"])
+        self.rows_seen = int(meta["rows_seen"])
+        self._cached_result = None
 
 
 class EventLeverageProtocol(LeverageProtocol):
@@ -578,6 +858,96 @@ class ShardProtocol(_ShardCheckpointMixin, SketchProtocol):
         self._cached_matrix = None
 
 
+class ShardHHProtocol(_ShardCheckpointMixin, HHProtocol):
+    """Super-step HH engine (batched MG merge) behind the uniform interface.
+
+    ``sites`` is ignored: element placement is the site axis of the batch
+    (each contiguous slice of ``n / m`` items is one paper site).  Backed by
+    ``core.distributed.hh_p1_step`` (per-site ``MGState`` on one
+    ``mg_scan`` launch, ``mg_merge`` coordinator folding).
+    """
+
+    def __init__(self, name: str, *, m: int, eps: float = 0.1, k: int = 0, device=None):
+        super().__init__(name, "shard", m, eps)
+        self.device = resolve_device(device)
+        self.cfg = dist.ProtocolConfig(eps=eps, m=m, d=2, k=k).resolved()
+        self._dist_key = "HH" + name
+        self.state, self._step = dist.make_protocol_runner(self._dist_key, self.cfg, self.device)
+        self._cached_estimates: dict[int, float] | None = None
+
+    def step(self, pairs, sites: np.ndarray | None = None) -> None:
+        """Advance one super-step on a weighted-element batch."""
+        keys, weights = self.split_pairs(pairs)
+        self.state = self._step(self.state, (
+            torch.as_tensor(keys, dtype=torch.int32).to(self.device),
+            torch.as_tensor(weights, dtype=torch.float32).to(self.device),
+        ))
+        self.rows_seen += int(keys.shape[0])
+        self._cached_estimates = None
+
+    def estimates(self) -> dict[int, float]:
+        """The coordinator's current estimate map (one host read per step)."""
+        if self._cached_estimates is None:
+            self._cached_estimates = dist.hh_estimates(self.state)
+        return dict(self._cached_estimates)
+
+    def total_weight(self) -> float:
+        """Coordinator estimate of the total stream weight."""
+        return dist.hh_w_hat(self.state)
+
+    def comm_report(self) -> CommReport:
+        """Messages spent so far, in the paper's units."""
+        return self.state.comm.report(self.cfg.m)
+
+    def _invalidate(self) -> None:
+        self._cached_estimates = None
+
+
+class ShardQuantileProtocol(_ShardCheckpointMixin, QuantileProtocol):
+    """Super-step quantile engine behind the uniform interface.
+
+    ``sites`` is ignored: value placement is the site axis of the batch.
+    Backed by ``core.distributed.quant_p1_step`` (per-site ``QuantState``,
+    ``quant_merge`` coordinator folding, each ending in one ``quant_pack``
+    launch).
+    """
+
+    def __init__(self, name: str, *, m: int, eps: float = 0.1, q_cap: int = 0, device=None):
+        super().__init__(name, "shard", m, eps)
+        self.device = resolve_device(device)
+        self.cfg = dist.ProtocolConfig(eps=eps, m=m, d=2, q_cap=q_cap).resolved()
+        self._dist_key = "Q" + name
+        self.state, self._step = dist.make_protocol_runner(self._dist_key, self.cfg, self.device)
+        self._cached_table: np.ndarray | None = None
+
+    def step(self, pairs, sites: np.ndarray | None = None) -> None:
+        """Advance one super-step on a weighted-value batch."""
+        values, weights = self.split_pairs(pairs)
+        self.state = self._step(self.state, (
+            torch.as_tensor(values, dtype=torch.float32).to(self.device),
+            torch.as_tensor(weights, dtype=torch.float32).to(self.device),
+        ))
+        self.rows_seen += int(values.shape[0])
+        self._cached_table = None
+
+    def table(self) -> np.ndarray:
+        """The coordinator's current table (one host read per step)."""
+        if self._cached_table is None:
+            self._cached_table = dist.quant_p1_table(self.state)
+        return self._cached_table
+
+    def total_weight(self) -> float:
+        """Coordinator estimate of the total stream weight."""
+        return dist.quant_p1_w_hat(self.state)
+
+    def comm_report(self) -> CommReport:
+        """Messages spent so far, in the paper's units."""
+        return self.state.comm.report(self.cfg.m)
+
+    def _invalidate(self) -> None:
+        self._cached_table = None
+
+
 class ShardLeverageProtocol(_ShardCheckpointMixin, LeverageProtocol):
     """Super-step leverage engine behind the uniform interface.
 
@@ -670,6 +1040,52 @@ for _name in ("P1", "P2"):
         factory=_factory(ShardProtocol, _name),
         description=f"super-step matrix {_name}, sites on a tensor axis",
     ))
+
+# Heavy hitters: deterministic P1/P2 meet eps exactly; the sampling
+# protocols (P3/P3wr) and probabilistic P4 carry the paper's 2x slack.
+_HH_ERR = {"P1": 1.0, "P2": 1.0, "P3": 2.0, "P3wr": 2.0, "P4": 2.0}
+
+for _name, _cls in event.HH_STREAMS.items():
+    register_protocol(ProtocolSpec(
+        name=_name,
+        kind="hh",
+        engine="event",
+        factory=_factory(EventHHProtocol, _name, _cls),
+        err_factor=_HH_ERR[_name],
+        description=f"event-driven weighted heavy hitters {_name} (paper Section 4)",
+    ))
+
+register_protocol(ProtocolSpec(
+    name="P1",
+    kind="hh",
+    engine="shard",
+    factory=_factory(ShardHHProtocol, "P1"),
+    err_factor=1.0,
+    description="super-step weighted heavy hitters P1 (MG merge), sites on a tensor axis",
+))
+
+# Quantiles: deterministic P1 meets eps via the GK interval invariant; the
+# sampling P3 and the fixed-capacity super-step summary carry 2x slack.
+_QUANT_ERR = {"P1": 1.0, "P3": 2.0}
+
+for _name, _cls in quant.QUANTILE_STREAMS.items():
+    register_protocol(ProtocolSpec(
+        name=_name,
+        kind="quantile",
+        engine="event",
+        factory=_factory(EventQuantileProtocol, _name, _cls),
+        err_factor=_QUANT_ERR[_name],
+        description=f"event-driven distributed quantiles {_name} (GK summaries)",
+    ))
+
+register_protocol(ProtocolSpec(
+    name="P1",
+    kind="quantile",
+    engine="shard",
+    factory=_factory(ShardQuantileProtocol, "P1"),
+    err_factor=2.0,
+    description="super-step distributed quantiles P1 (summary merge), sites on a tensor axis",
+))
 
 # Leverage sampling: deterministic P1 (kept rows exact + FD residual) meets
 # eps via the FD envelope; the score-weighted sampling P2 and the

@@ -45,8 +45,13 @@ def test_cuda_kernels_match_plain(t, l, n, d):
         _close(got, want)
     after = ops.launch_counts()
     launched = {k: after[k] - before[k] for k in after}
-    assert launched == {"fd_gram": 1, "fd_project": 1, "quadform": 2, "levscore": 0,
-                        "flash_attention": 0}
+    # A stack (t > 1) counts as the batched and packed kernels, one buffer as
+    # the single ones; quadform(b[0], x[0]) is always a single launch.
+    one = int(t == 1)
+    assert launched == {"fd_gram": one, "fd_gram_batched": 1 - one, "fd_project": one,
+                        "fd_project_batched": 1 - one, "quadform": 1 + one,
+                        "quadform_packed": 1 - one, "levscore": 0, "flash_attention": 0,
+                        "mg_scan": 0, "quant_pack": 0}
 
     # The whole shrink, sign-free: B'^T B' and the shrink mass delta.
     out, delta = ops.fd_shrink(b)
@@ -84,11 +89,13 @@ def test_cuda_quadform_matches_plain(t, l, n, d, misaligned):
     gen = torch.Generator(device="cuda").manual_seed(t * l + n + d)
     b = _on_card((t, l, d), gen, misaligned)
     x = _on_card((t, n, d), gen, misaligned)
-    before = ops.launch_counts()["quadform"]
+    before = ops.launch_counts()
     got, again = ops.quadform_packed(b, x), ops.quadform_packed(b, x)
     one = ops.quadform(b[0], x[0])
     torch.cuda.synchronize()
-    assert ops.launch_counts()["quadform"] - before == 3
+    after = ops.launch_counts()
+    assert (after["quadform"] - before["quadform"],
+            after["quadform_packed"] - before["quadform_packed"]) == ((3, 0) if t == 1 else (1, 2))
     assert torch.equal(got, again)
     _close(got, ref.ref_quadform_packed(b, x))
     _close(one, ref.ref_quadform(b[0], x[0]))
@@ -125,10 +132,11 @@ def test_cuda_fd_kernels_match_plain(kernel, t, l, d, misaligned):
         u = _on_card((t, l, l), gen, misaligned)
         run = lambda: fd_ops.fd_project(w, u, b)  # noqa: E731
         plain = lambda: ref.ref_fd_project_batched(w, u, b)  # noqa: E731
-    before = ops.launch_counts()[kernel]
+    counted = kernel if t == 1 else f"{kernel}_batched"  # one buffer, or a stack
+    before = ops.launch_counts()[counted]
     got, again = run(), run()
     torch.cuda.synchronize()
-    assert ops.launch_counts()[kernel] - before == 2
+    assert ops.launch_counts()[counted] - before == 2
     assert torch.equal(got, again)
     _close(got, plain())
     if kernel == "fd_gram":
@@ -153,8 +161,11 @@ def test_tracker_on_the_card_launches_the_shrink_kernels():
         on_card.update(batch)
         on_cpu.update(batch)
     after = ops.launch_counts()
-    assert after["fd_gram"] > before["fd_gram"]
-    assert after["fd_project"] - before["fd_project"] == after["fd_gram"] - before["fd_gram"]
+    delta = {k: after[k] - before[k] for k in after}
+    # Two sites' buffers shrink as a stack, the coordinator's alone.
+    assert delta["fd_gram_batched"] > 0 and delta["fd_gram"] > 0
+    assert (delta["fd_project"], delta["fd_project_batched"]) == (delta["fd_gram"],
+                                                                  delta["fd_gram_batched"])
     b_card = torch.from_numpy(on_card.sketch_matrix()).double()
     b_cpu = torch.from_numpy(on_cpu.sketch_matrix()).double()
     _close(b_card.T @ b_card, b_cpu.T @ b_cpu, rtol=1e-4)
@@ -231,3 +242,60 @@ def test_cuda_flash_attention_matches_plain(b, hq, hkv, s, dh, window, softcap, 
         _close(got.float(), want, rtol=2.0**-8, atol=1e-5 * float(want.abs().max()))
     with pytest.raises(ValueError, match="head dims"):
         ops.flash_attention(q[..., :16], k[..., :16], v[..., :16])
+
+
+def _mg_inputs(s, k, b, gen):
+    """S Misra--Gries summaries half full (keys from a small range, so items
+    hit, fill and evict) and (S, b) items with ties in their weights and some
+    zero weights."""
+    keys = torch.randint(0, 3 * k, (s, k), device="cuda", generator=gen, dtype=torch.int32)
+    keys[:, k // 2:] = -1
+    counts = torch.where(keys >= 0, torch.randint(1, 5, (s, k), device="cuda", generator=gen)
+                         .float(), 0.0)
+    weight, shrink = counts.sum(1), torch.zeros(s, device="cuda")
+    items = torch.randint(0, 3 * k, (s, b), device="cuda", generator=gen, dtype=torch.int32)
+    w = torch.randint(0, 4, (s, b), device="cuda", generator=gen).float()  # ties and zeros
+    return keys, counts, weight, shrink, items, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,k,b", [(50, 200, 1250), (3, 7, 100), (1, 40, 33)])
+def test_cuda_mg_scan_matches_plain_bit_for_bit(s, k, b):
+    """``mg_scan`` against the plain step-by-step loop, bit for bit (the same
+    f32 additions and comparisons in the same order), one launch a call.
+    Needs a CUDA card and nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(s + k + b)
+    args = _mg_inputs(s, k, b, gen)
+    before = ops.launch_counts()["mg_scan"]
+    got = ops.mg_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mg_scan"] == before + 1
+    for g, w in zip(got, ref.ref_mg_scan(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,cap", [(50, 1058, 808), (1, 1616, 808), (4, 5000, 60)])
+def test_cuda_quant_pack_matches_plain_bit_for_bit(t, n, cap):
+    """``quant_pack`` against the plain step-by-step loop, bit for bit, on
+    sorted tuples with duplicate values, pads and more tuples than ``cap``
+    (n = 5000 also crosses the kernel's 2048-tuple staging chunks).  Needs a
+    CUDA card and nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(t + n + cap)
+    v = torch.randint(0, n // 2, (t, n), device="cuda", generator=gen).float().sort(-1).values
+    v[:, n - n // 10:] = float("inf")
+    g = torch.rand(t, n, device="cuda", generator=gen)
+    rmin = torch.cumsum(g, -1)
+    rmax = rmin + torch.rand(t, n, device="cuda", generator=gen)
+    wv = g * torch.rand(t, n, device="cuda", generator=gen)
+    thresh = rmin[:, -1] * (8.0 / cap)
+    before = ops.launch_counts()["quant_pack"]
+    got = ops.quant_pack(v, rmin, rmax, wv, thresh, cap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["quant_pack"] == before + 1
+    for a, b in zip(got, ref.ref_quant_pack(v, rmin, rmax, wv, thresh, cap)):
+        assert torch.equal(a, b)

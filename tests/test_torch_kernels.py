@@ -110,8 +110,12 @@ def test_wrappers_check_operands_and_count_only_launches():
     ops.quadform(b, torch.ones(3, 8))
     ops.levscore(torch.eye(8), torch.ones(3, 8))
     ops.flash_attention(torch.ones(1, 2, 3, 8), torch.ones(1, 1, 3, 8), torch.ones(1, 1, 3, 8))
-    assert ops.launch_counts() == {"fd_gram": 0, "fd_project": 0, "quadform": 0, "levscore": 0,
-                                   "flash_attention": 0}
+    ops.mg_scan(torch.full((2, 3), -1, dtype=torch.int32), torch.zeros(2, 3), torch.zeros(2),
+                torch.zeros(2), torch.ones(2, 4, dtype=torch.int32), torch.ones(2, 4))
+    ops.quant_pack(*(torch.ones(2, 5) for _ in range(4)), torch.ones(2), 3)
+    assert ops.launch_counts() == dict.fromkeys(
+        ("fd_gram", "fd_gram_batched", "fd_project", "fd_project_batched", "quadform",
+         "quadform_packed", "levscore", "flash_attention", "mg_scan", "quant_pack"), 0)
 
 
 def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
@@ -123,7 +127,7 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
 
 # The f32 kernels' sources, and what would put tensor cores in them.
 F32_SOURCES = ("fd_gram.cu", "fd_project.cu", "quadform.cu", "levscore.cu", "flash_attention.cu",
-               "f32_staging.cuh")
+               "f32_staging.cuh", "mg_scan.cu", "quant_pack.cu")
 TENSOR_CORE = re.compile(r"wgmma|mma\.sync|wmma|tf32", re.IGNORECASE)
 
 
@@ -161,7 +165,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert {"core/leverage.py", "core/protocols.py", "query/service.py",
             "runtime/pipeline.py", "runtime/policies.py", "models/attention.py",
             "models/transformer.py", "serve/engine.py", "configs/registry.py",
-            "ckpt/checkpoint.py", "runtime/ingest_packed.py"} <= scanned
+            "ckpt/checkpoint.py", "runtime/ingest_packed.py", "core/hh.py",
+            "core/quantiles.py"} <= scanned
     bad = {
         f"{f.relative_to(REPO)}: {name}"
         for f in files

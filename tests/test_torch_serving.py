@@ -115,13 +115,21 @@ def test_query_packed_matches_reference(served):
 
 
 def test_other_workloads_and_bad_requests_raise(served):
-    _, _, engine = served
-    engine.store.publish("hh", np.zeros((2, 2), np.float32), frob=1.0, eps=0.1,
-                         meta={"workload": "hh"})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        engine.query_batch(np.zeros((1, 1), np.float32), tenant="hh")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        engine.query_packed([PackedRequest("hh", np.zeros((1, 1), np.float32))])
+    _, ref_engine, engine = served
+    # A heavy-hitter snapshot ([element, estimate] rows) is served as the
+    # reference serves it: point lookups, 0 for an element it does not hold.
+    hh = np.array([[2.0, 5.0], [7.0, 1.5]], np.float32)
+    for store in (engine.store, ref_engine.store):
+        store.publish("hh", hh, frob=6.5, eps=0.1, meta={"workload": "hh"})
+    ids = np.array([[7.0], [3.0], [2.0]], np.float32)
+    got, want = engine.query_batch(ids, tenant="hh"), ref_engine.query_batch(ids, tenant="hh")
+    np.testing.assert_array_equal(got.estimates, want.estimates)
+    assert (got.path, got.version, got.error_bound) == (want.path, want.version,
+                                                        want.error_bound) == ("hh", 1, 0.65)
+    (got,) = engine.query_packed([PackedRequest("hh", ids)])
+    (want,) = ref_engine.query_packed([RefRequest("hh", ids)])
+    np.testing.assert_array_equal(got.estimates, want.estimates)
+    assert got.path == want.path == "hh"
     with pytest.raises(ValueError, match="unknown query path"):
         engine.query_batch(_dirs(6, 2), tenant="run", path="pallas")
     with pytest.raises(ValueError, match="directions must be"):
