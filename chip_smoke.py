@@ -112,10 +112,17 @@ the CUDA toolkit:
    f64 on the host, recall of the heavy set is 1, the worst rank error of the
    quantile probes is within ``err_factor * eps * W``; the pipeline is saved,
    loaded on the card (leaves and answers bit-identical) and one more wave
-   gives the uninterrupted pipeline's answers.  ``mg_scan`` (one wave's site
-   scan) and ``quant_pack`` (the 50 site inserts, one coordinator merge) are
-   held bit for bit to their plain versions on the inputs the first wave
-   gave them, and timed beside a chain bound (their dependent steps).
+   gives the uninterrupted pipeline's answers.  The wave's quantile
+   coordinator must fold its 50 shipped summaries in one ``quant_fold``
+   launch, and ``mg_scan`` must take its route with the slots in registers.
+   ``mg_scan`` (one wave's site scan), ``quant_merge_pack`` (the 50 site
+   inserts) and ``quant_fold`` (the coordinator's fold of 50 summaries) are
+   held bit for bit to their plain versions, run on CPU copies of the inputs
+   the first wave gave them (a CUDA ``cumsum`` would round elsewhere), and
+   timed beside a chain bound (their dependent steps over live tuples); the
+   plain versions on the host clock, the fold's once.  Each tenant's
+   items/s are reported over the timed waves and at the median wave, beside
+   the garbage collector's pauses in those waves.
 
 Launch counts are set to 0 just before each path (the P2 path, the
 pipeline, the packed pipeline, path 5, the serving run) and read just
@@ -128,10 +135,12 @@ without CUDA, or a directory without the package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -215,12 +224,15 @@ PACK_KERNELS = ("fd_gram_batched", "fd_project_batched", "quadform", "levscore")
 HQ_M, HQ_EPS, HQ_WAVES, HQ_PROFILED_WAVES, HQ_PHI = 50, 0.01, 16, 2, 0.05
 HH_ITEMS, HH_KEYS, Q_ITEMS, EVENT_ITEMS = 1_000_000, 50_000, 200_000, 20_000
 HQ_MATRIX_WAVES, HQ_MATRIX_ROWS = 4, 4000
-HQ_KERNELS = ("mg_scan", "quant_pack", "quadform", "fd_gram", "fd_project")
-# The two kernels no Pallas kernel stands behind: the reference's sequential
+HQ_KERNELS = ("mg_scan", "quant_merge_pack", "quant_fold", "quadform", "fd_gram", "fd_project")
+# The kernels no Pallas kernel stands behind: the reference's sequential
 # loops, run as XLA code.
 NO_PALLAS = {
     "mg_scan": "none (src/repro/core/hh.py:98 mg_update_stream, a lax.scan)",
-    "quant_pack": "none (src/repro/core/quantiles.py:468 _quant_pack, a lax.fori_loop)",
+    "quant_merge_pack": "none (src/repro/core/quantiles.py:468 _quant_pack, a lax.fori_loop, "
+                        "ending quant_merge at :523)",
+    "quant_fold": "none (src/repro/core/distributed.py:521 the coordinator's loop of "
+                  "quant_merge over m sites)",
 }
 # A sequential kernel's chain bound: its dependent steps at about 30 cycles
 # each (a shared-memory round trip, or four dependent f32 additions, a
@@ -457,8 +469,19 @@ def run_kernel_cases(torch, cases) -> list[dict]:
 
     results = []
     for c in cases:
-        # A case may hold the kernel to the plain version in f32 (``want``).
-        got, again, want = c["run"](), c["run"](), c.get("want", c["plain"])()
+        # A case may hold the kernel to the plain version in f32 (``want``),
+        # or run the plain version on CPU copies of its inputs, timed on the
+        # host clock over ``plain_reps`` calls.
+        got, again = c["run"](), c["run"]()
+        if c.get("plain_on_cpu"):
+            plain_s = []
+            for _ in range(c.get("plain_reps", 1)):
+                t0 = time.perf_counter()
+                want = c["plain"]()
+                plain_s.append(time.perf_counter() - t0)
+            want = want.to(got.device)
+        else:
+            want = c.get("want", c["plain"])()
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"{c['kernel']} {c['shape']}: two runs differ")
         if c.get("symmetric"):
@@ -495,11 +518,17 @@ def run_kernel_cases(torch, cases) -> list[dict]:
         if "chain_steps" in c:  # a sequential loop: its chain of dependent steps
             extra.update(chain_steps=c["chain_steps"],
                          chain_bound_ms=c["chain_steps"] * CHAIN_STEP_S * 1e3)
+        if c.get("plain_on_cpu"):
+            extra.update(plain_on="cpu (host clock)", plain_calls=len(plain_s))
+        if "variant" in c:
+            extra["variant"] = c["variant"]
         results.append(dict(
             kernel=c["kernel"], shape=c["shape"], replaces=c["pallas"],
             source=c.get("source", ops.KERNELS[c["kernel"]][0].source),
             max_abs_err=err, max_rel_err=err / max(scale, 1e-30), err_over_tol=err_over_tol,
-            ms=time_ms(torch, c["run"]), plain_ms=time_ms(torch, c["plain"], c.get("plain_reps", 20)),
+            ms=time_ms(torch, c.get("time", c["run"])),
+            plain_ms=(1e3 * sum(plain_s) / len(plain_s) if c.get("plain_on_cpu")
+                      else time_ms(torch, c["plain"], c.get("plain_reps", 20))),
             library_ms=time_ms(torch, c["library"]) if c["library"] else None,
             bound_ms=b_ms, bound_by=b_by, gflop=c["flops"] / 1e9, mbytes=c["nbytes"] / 1e6,
             on_path=c.get("on_path", False),
@@ -1344,6 +1373,13 @@ def hq_identical(a: dict, b: dict, skip=()) -> bool:
     return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in b if k not in skip)
 
 
+def _cloned(a):
+    """A tensor's clone, a tuple's of tensors' clones, anything else as it is."""
+    if isinstance(a, tuple):
+        return tuple(_cloned(x) for x in a)
+    return a.clone() if hasattr(a, "clone") else a
+
+
 class _Recorder:
     """Records the first call of a kernel wrapper in ``ops`` whose inputs
     ``want(*args)`` accepts, passing every call through."""
@@ -1354,7 +1390,7 @@ class _Recorder:
 
     def __call__(self, *args):
         if self.args is None and self.want(*args):
-            self.args = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+            self.args = tuple(_cloned(a) for a in args)
         return self.real(*args)
 
     def __enter__(self):
@@ -1373,7 +1409,7 @@ def drive_hq(torch, batches, seed: int) -> dict:
     outside the counted window — saves the pipeline, loads it on the card
     and feeds one more wave into both.  The first wave records the kernels'
     inputs at the path's shapes: the site scan of ``mg_scan``, the site
-    inserts and one coordinator merge of ``quant_pack``."""
+    inserts of ``quant_merge_pack`` and the coordinator's ``quant_fold``."""
     import tempfile
 
     import numpy as np
@@ -1389,6 +1425,7 @@ def drive_hq(torch, batches, seed: int) -> dict:
     pipe = hq_pipeline()
     names = [name for name, _ in waves[0]]
     ingest_s = dict.fromkeys(names, 0.0)
+    wave_s = {name: [] for name in names}
     items = dict.fromkeys(names, 0)
     timed = HQ_WAVES - HQ_PROFILED_WAVES
 
@@ -1398,17 +1435,30 @@ def drive_hq(torch, batches, seed: int) -> dict:
             pipe.ingest(name, batch)
             torch.cuda.synchronize()
             if clock:
-                ingest_s[name] += time.perf_counter() - t0
+                wave_s[name].append(time.perf_counter() - t0)
+                ingest_s[name] += wave_s[name][-1]
                 items[name] += len(batch[0]) if isinstance(batch, tuple) else batch.shape[0]
+
+    # Python's garbage collector pauses whatever tenant's ingest it lands in:
+    # its pauses in the timed waves are kept beside the wave times.
+    gc_pauses, gc_start = [], [0.0]
+
+    def gc_clock(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_pauses.append((info["generation"], time.perf_counter() - gc_start[0]))
 
     ops.reset_launch_counts()
     torch.cuda.synchronize()
+    gc.callbacks.append(gc_clock)
     with _Recorder(ops, "mg_scan", lambda *a: a[0].shape[0] == HQ_M) as rec_mg, \
-            _Recorder(ops, "quant_pack", lambda *a: a[0].shape[0] == HQ_M) as rec_site, \
-            _Recorder(ops, "quant_pack", lambda *a: a[0].shape[0] == 1) as rec_coord:
+            _Recorder(ops, "quant_merge_pack", lambda a, *_: a[0].shape[0] == HQ_M) as rec_site, \
+            _Recorder(ops, "quant_fold", lambda *a: True) as rec_fold:
         feed(waves[0], clock=True)
     for wave in waves[1:timed]:
         feed(wave, clock=True)
+    gc.callbacks.remove(gc_clock)
     prof = profile_hq(torch, lambda: [feed(w, clock=False) for w in waves[timed:]])
     t0 = time.perf_counter()
     snaps = {name: pipe.publish(name) for name in names}
@@ -1427,6 +1477,7 @@ def drive_hq(torch, batches, seed: int) -> dict:
     })
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    mg_routes = {k.symbol: k.launches for k in ops.KERNELS["mg_scan"]}
     hq_s = time.perf_counter() - t_phase
 
     # The checkpoint, outside the counted window.
@@ -1453,19 +1504,25 @@ def drive_hq(torch, batches, seed: int) -> dict:
     tail_answers = {"uninterrupted": hq_answers(pipe, queries), "loaded": hq_answers(loaded, queries)}
     torch.cuda.synchronize()
     return dict(pipe=pipe, streams=streams, queries=queries, snaps=snaps, answers=answers,
-                ingest_s=ingest_s, items=items, publish_s=publish_s, latency=latency,
+                ingest_s=ingest_s, wave_s=wave_s, items=items, publish_s=publish_s,
+                gc=dict(pauses=len(gc_pauses), seconds=sum(t for _, t in gc_pauses),
+                        longest_s=max((t for _, t in gc_pauses), default=0.0),
+                        gen2=sum(g == 2 for g, _ in gc_pauses)),
+                latency=latency,
                 profile=prof, launches=launches, save_s=save_s, load_s=load_s, bytes=nbytes,
                 leaves_equal=leaves_equal, loaded_bitwise=loaded_bitwise,
                 tail_answers=tail_answers, tail=tail, batches=batches, hq_s=hq_s,
-                recorded={"mg_scan": rec_mg.args, "quant_pack site": rec_site.args,
-                          "quant_pack coord": rec_coord.args},
+                mg_routes=mg_routes,
+                recorded={"mg_scan": rec_mg.args, "quant_merge_pack": rec_site.args,
+                          "quant_fold": rec_fold.args},
                 phase_s=time.perf_counter() - t_phase)
 
 
 def profile_hq(torch, fn) -> dict:
     """``torch.profiler`` over ``fn()`` (path 5's last waves): device busy
-    share, and the device time and launches of the two sequential kernels
-    (summed from the raw events, as ``raw_profile`` does)."""
+    share, and the device time and launches of the sequential kernels
+    (summed from the raw events, as ``raw_profile`` does; ``quant_fold_kernel``
+    serves both ``quant_merge_pack`` and ``quant_fold``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1478,9 +1535,9 @@ def profile_hq(torch, fn) -> dict:
     busy_us = sum(dev.values())
     check(busy_us > 0, "the profiler saw no device time in path 5's waves")
     kernels = {}
-    for name in ("mg_scan", "quant_pack"):
-        us = sum(v for k, v in dev.items() if f"{name}_kernel" in k)
-        n = sum(c for k, c in count.items() if f"{name}_kernel" in k)
+    for name, symbol in (("mg_scan", "mg_scan_"), ("quant_fold", "quant_fold_kernel")):
+        us = sum(v for k, v in dev.items() if symbol in k)
+        n = sum(c for k, c in count.items() if symbol in k)
         kernels[name] = dict(device_ms=us / 1e3, launches=n, us_a_launch=us / max(n, 1))
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     return dict(waves=HQ_PROFILED_WAVES, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
@@ -1499,6 +1556,7 @@ def check_hq(torch, hq) -> dict:
 
     from repro_torch.core.hh import decode_hh_snapshot
     from repro_torch.core.quantiles import exact_ranks
+    from repro_torch.kernels import ops
     from repro_torch.runtime import get_spec
 
     ans, q, streams = hq["answers"], hq["queries"], hq["streams"]
@@ -1557,6 +1615,13 @@ def check_hq(torch, hq) -> dict:
               f"{name}: query_packed answers differ from query_batch's")
     for name in HQ_KERNELS:
         check(hq["launches"][name] > 0, f"kernel {name} was not launched on path 5")
+    # One site insert and one coordinator fold a wave; mg_scan's route by k.
+    for name in ("quant_merge_pack", "quant_fold"):
+        check(hq["launches"][name] == HQ_WAVES,
+              f"path 5 launched {name} {hq['launches'][name]} times in {HQ_WAVES} waves")
+    routes = hq["mg_routes"]
+    check(routes[ops.MG_SCAN.symbol] > 0 and routes[ops.MG_SCAN_SHARED.symbol] == 0,
+          f"path 5's mg_scan did not take its route with the slots in registers: {routes}")
     check(hq["launches"]["levscore"] == 0 and hq["launches"]["flash_attention"] == 0,
           f"path 5 launched a kernel it does not run: {hq['launches']}")
     check(hq["leaves_equal"], "path 5: a state leaf differs right after the load")
@@ -1575,43 +1640,87 @@ def check_hq(torch, hq) -> dict:
 
 
 def hq_cases(torch, hq) -> list[dict]:
-    """``mg_scan`` and ``quant_pack`` at path 5's shapes, on the inputs the
-    first wave gave them: the site scan (50 summaries x one wave's items),
-    the 50 site inserts and one coordinator merge.  Bit for bit against the
-    plain step-by-step loops, whose device time is taken over 2 calls (each
-    is tens of thousands of launches)."""
+    """``mg_scan``, ``quant_merge_pack`` and ``quant_fold`` at path 5's shapes,
+    on the inputs the first wave gave them: the site scan (50 summaries x one
+    wave's items), the 50 site inserts and the coordinator's fold of the 50
+    shipped summaries.  Bit for bit against the plain step-by-step loops run
+    on CPU copies of those inputs (a CUDA ``cumsum`` rounds elsewhere than the
+    merge's f64 prefix sums), whose time is taken on the host clock: over 2
+    calls, the fold's over 1.  The kernel's time is its wrapper's call alone
+    (``time``), without the copies that flatten its outputs for the check.  A
+    chain bound counts the dependent steps of the longest row: items for
+    ``mg_scan``; live tuples walked for the merges (in the fold, merge after
+    merge, counted by stepping ``quant_merge_pack``)."""
     from repro_torch.kernels import ops, ref
 
     def flat(out):
         return torch.cat([t.double().flatten() for t in out])
+
+    def cpu(args):
+        return tuple(cpu(a) if isinstance(a, tuple) else a.cpu() if hasattr(a, "cpu") else a
+                     for a in args)
+
+    def live(x):
+        return torch.isfinite(x).sum(-1)
 
     cases = []
     args = hq["recorded"]["mg_scan"]
     check(args is not None, "path 5's first wave recorded no mg_scan call")
     s, k = args[0].shape
     b = args[4].shape[1]
+    route = 1 if k <= ops.MG_REGISTER_SLOTS else 2
     cases.append(dict(
-        kernel="mg_scan", shape=f"site scan: (S={s}, k={k}, b={b})", pallas=NO_PALLAS["mg_scan"],
-        run=lambda a=args: flat(ops.mg_scan(*a)), plain=lambda a=args: flat(ref.ref_mg_scan(*a)),
-        library=None, exact=True, plain_reps=2, chain_steps=b, on_path=True,
+        kernel="mg_scan", shape=f"site scan: (S={s}, k={k}, b={b}), route {route}",
+        pallas=NO_PALLAS["mg_scan"], run=lambda a=args: flat(ops.mg_scan(*a)),
+        time=lambda a=args: ops.mg_scan(*a),
+        plain=lambda a=cpu(args): flat(ref.ref_mg_scan(*a)), plain_on_cpu=True, plain_reps=2,
+        library=None, exact=True, chain_steps=b, on_path=True,
+        variant=f"route {route}: slots in {'registers' if route == 1 else 'shared memory'}",
         # Each item compares every slot, at least: S b k operations.
         flops=float(s * b * k), nbytes=8.0 * (2 * s * k + 2 * s + s * b),
     ))
-    for label, key in (("site inserts", "quant_pack site"), ("coordinator merge", "quant_pack coord")):
-        args = hq["recorded"][key]
-        check(args is not None, f"path 5's first wave recorded no quant_pack call ({label})")
-        t, n = args[0].shape
-        cap = args[5]
-        cases.append(dict(
-            kernel="quant_pack", shape=f"{label}: (T={t}, n={n}, cap={cap})",
-            pallas=NO_PALLAS["quant_pack"],
-            run=lambda a=args: flat(ops.quant_pack(*a)),
-            plain=lambda a=args: flat(ref.ref_quant_pack(*a)),
-            library=None, exact=True, plain_reps=2, chain_steps=n, on_path=True,
-            # About eight f32 additions and comparisons a tuple.
-            flops=8.0 * t * n, nbytes=4.0 * (4 * t * n + t + 4 * t * cap),
-        ))
+    args = hq["recorded"]["quant_merge_pack"]
+    check(args is not None, "path 5's first wave recorded no quant_merge_pack call (site inserts)")
+    a, bb, two_eps, cap = args
+    (t, la), lb = a[0].shape, bb[0].shape[1]
+    steps = int((live(a[0]) + live(bb[0])).max())
+    cases.append(dict(
+        kernel="quant_merge_pack",
+        shape=f"site inserts: (T={t}, la={la}, lb={lb}, cap={cap}; {steps} live tuples walked)",
+        pallas=NO_PALLAS["quant_merge_pack"], run=lambda a=args: flat(ops.quant_merge_pack(*a)),
+        time=lambda a=args: ops.quant_merge_pack(*a),
+        plain=lambda a=cpu(args): flat(ref.ref_quant_merge_pack(*a)), plain_on_cpu=True,
+        plain_reps=2, library=None, exact=True, chain_steps=steps, on_path=True,
+        # About eight f32 additions and comparisons a walked tuple.
+        flops=8.0 * float((live(a[0]) + live(bb[0])).sum()),
+        nbytes=4.0 * (4 * t * (la + lb + cap) + 3 * t),
+    ))
+    args = hq["recorded"]["quant_fold"]
+    check(args is not None, "path 5's first wave recorded no quant_fold call")
+    a, bb, two_eps, cap = args
+    t, m, lb = bb[0].shape
+    check(t == 1, f"path 5's fold has one coordinator, got {t}")
+    # The fold's chain: each merge's live tuples, merge after merge.
+    steps, state = 0, a
+    for j in range(m):
+        site = tuple(x[:, j] for x in bb)
+        steps += int(live(state[0])[0] + live(site[0])[0])
+        state = ops.quant_merge_pack(state, site, two_eps, cap)
+    torch.cuda.synchronize()
+    check(torch.equal(flat(state), flat(ops.quant_fold(*args))),
+          "the fold differs from its merges taken one launch at a time")
+    cases.append(dict(
+        kernel="quant_fold",
+        shape=f"coordinator fold: (m={m}, cap={cap}; {steps} live tuples walked of "
+              f"{m * (cap + lb)})",
+        pallas=NO_PALLAS["quant_fold"], run=lambda a=args: flat(ops.quant_fold(*a)),
+        time=lambda a=args: ops.quant_fold(*a),
+        plain=lambda a=cpu(args): flat(ref.ref_quant_fold(*a)), plain_on_cpu=True, plain_reps=1,
+        library=None, exact=True, chain_steps=steps, on_path=True,
+        flops=8.0 * steps, nbytes=4.0 * (8 * cap + 2 + m * (4 * lb + 1)),
+    ))
     return cases
+
 
 def attention_pairs(s: int, window: int) -> int:
     """(query, key) pairs causal attention over s positions needs, with a window."""
@@ -1946,6 +2055,11 @@ def main() -> int:
         items=dict(hh=HH_ITEMS, quantile=Q_ITEMS, event=EVENT_ITEMS,
                    matrix_rows=HQ_MATRIX_WAVES * HQ_MATRIX_ROWS),
         items_per_s={n: hq["items"][n] / hq["ingest_s"][n] for n in hq["items"]},
+        # One wave's items over the median wave's time: neither the first
+        # wave's one-time costs nor a garbage collector's pause move it.
+        items_per_s_median_wave={n: hq["items"][n] / len(ws) / statistics.median(ws)
+                                 for n, ws in hq["wave_s"].items()},
+        wave_s=hq["wave_s"], gc=hq["gc"],
         ingest_s=hq["ingest_s"], publish_s=hq["publish_s"], latency=hq["latency"],
         profile=hq["profile"], launches=hq["launches"], save_s=hq["save_s"],
         load_s=hq["load_s"], checkpoint_bytes=hq["bytes"], leaves_equal=hq["leaves_equal"],
@@ -1975,7 +2089,7 @@ def main() -> int:
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], shape=main["shape"], shapes=mine,
-            **({"chain_bound_ms": main["chain_bound_ms"]} if "chain_bound_ms" in main else {}),
+            **{k: main[k] for k in ("chain_bound_ms", "variant", "plain_on") if k in main},
         ))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -2050,8 +2164,12 @@ def main() -> int:
     hp = summary["hq_path"]
     print(f"path 5, heavy hitters and quantiles (m = {HQ_M}, eps = {HQ_EPS}; {card}): items/s "
           + ", ".join(f"{n} {v:.0f}" for n, v in hp["items_per_s"].items())
-          + f" over {HQ_WAVES - HQ_PROFILED_WAVES} waves (synchronised host clock); window "
-          f"{hp['window_s']:.1f} s, phase {hp['phase_s']:.1f} s")
+          + f" over {HQ_WAVES - HQ_PROFILED_WAVES} waves (synchronised host clock); at the "
+          "median wave "
+          + ", ".join(f"{n} {v:.0f}" for n, v in hp["items_per_s_median_wave"].items())
+          + f"; garbage collector {hp['gc']['pauses']} pauses, {hp['gc']['seconds']:.3f} s, "
+          f"longest {hp['gc']['longest_s']:.3f} s; window {hp['window_s']:.1f} s, phase "
+          f"{hp['phase_s']:.1f} s")
     hk = hp["profile"]["kernels"]
     print(f"path 5 profile of {HQ_PROFILED_WAVES} waves: device busy "
           f"{hp['profile']['device_busy_share']:.1%} of {hp['profile']['wall_ms']:.1f} ms; "

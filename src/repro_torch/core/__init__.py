@@ -7,8 +7,9 @@ Ported so far:
                      (MP1–MP4) protocols (numpy copy)
   * hh.py          — Misra--Gries summaries on tensors (``mg_scan``
                      kernel) + the numpy oracles and snapshot codec
-  * quantiles.py   — GK quantile summaries on tensors (``quant_pack``
-                     kernel) + the numpy summary, event streams and codec
+  * quantiles.py   — GK quantile summaries on tensors (``quant_merge_pack``
+                     and ``quant_fold`` kernels) + the numpy summary, event
+                     streams and codec
   * leverage.py    — leverage-score row sampling: oracle, codec, event
                      streams, the tensor reservoir
   * distributed.py — super-step engine with the sites on a tensor axis:

@@ -38,7 +38,8 @@ Protocols ported so far:
     * ``HHP1`` — weighted heavy hitters: per-site Misra--Gries summaries,
       shipped whole on the weight threshold and folded in with ``mg_merge``.
     * ``QP1`` — quantiles: per-site GK summaries, shipped on a ``1 + eps/4``
-      weight growth and folded in with ``quant_merge``.
+      weight growth and folded in with ``quant_fold`` (``quant_merge`` site by
+      site, in one launch).
 
 The two pair-input kinds (HHP1, QP1) take ``(keys or values, weights)``,
 each a global ``(m * b,)`` tensor, and are not packable: the coordinator
@@ -460,14 +461,14 @@ def hh_w_hat(st: HHP1State) -> float:
 #
 # The quantile twin of hh_p1_step: every site maintains a fixed-shape
 # GK-style ``QuantState`` over its local (value, weight) stream (all m
-# inserts in one sort and one ``quant_pack`` launch); when its cumulative
-# weight has grown by a ``1 + eps/4`` factor since the last ship (with an
-# ``eps/(4m) * w_hat`` floor so early items batch up) it ships the whole
-# summary, and the coordinator folds shipped summaries in with
-# ``quant_merge``, site by site in order; a non-sender contributes the
-# all-pad summary.  Message units follow the paper: a shipped summary of
-# ``r`` live tuples costs ``r`` item messages plus one scalar, a ``w_hat``
-# rebroadcast costs m.
+# inserts in one sort and one ``quant_merge_pack`` launch); when its
+# cumulative weight has grown by a ``1 + eps/4`` factor since the last ship
+# (with an ``eps/(4m) * w_hat`` floor so early items batch up) it ships the
+# whole summary, and the coordinator folds shipped summaries in with
+# ``quant_fold``: one launch that merges them site by site in order; a
+# non-sender contributes the all-pad summary.  Message units follow the
+# paper: a shipped summary of ``r`` live tuples costs ``r`` item messages
+# plus one scalar, a ``w_hat`` rebroadcast costs m.
 # ---------------------------------------------------------------------------
 
 
@@ -514,10 +515,7 @@ def quant_p1_step(cfg: ProtocolConfig, st: QuantP1State, pairs) -> QuantP1State:
         wv=torch.where(send[:, None], site_q.wv, 0.0),
         weight=torch.where(send, site_q.weight, 0.0),
     )
-    coord = st.coord_q
-    for j in range(cfg.m):
-        coord = qlib.quant_merge(coord, qlib.QuantState(*(leaf[j] for leaf in pay)),
-                                 cfg.eps / 2.0, cfg.q_cap)
+    coord = qlib.quant_fold(st.coord_q, pay, cfg.eps / 2.0, cfg.q_cap)
 
     live = torch.isfinite(site_q.values).sum(-1)
     shipped = torch.where(send, live, 0).sum()

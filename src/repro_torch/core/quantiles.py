@@ -14,9 +14,10 @@ fixed-shape summary on tensors:
     the mass sitting exactly at ``v``.
   * ``QuantState`` + ``quant_*`` — the same summary as fixed-shape tensors
     with any leading axes (one summary per site on the super-step engine's
-    ``m`` axis), padded with ``+inf`` values.  Every merge and insert ends
-    in one launch of the ``quant_pack`` kernel (``kernels.ops.quant_pack``)
-    for all rows at once.
+    ``m`` axis), padded with ``+inf`` values.  Every merge and insert is
+    one launch of the merge-and-pack kernel (``kernels.ops.quant_merge_pack``)
+    for all rows at once; ``quant_fold`` merges m shipped summaries into a
+    coordinator's in one launch (``kernels.ops.quant_fold``).
   * ``QuantileP1Stream`` / ``QuantileP3Stream`` — event-driven site ->
     coordinator protocols in the paper's style (numpy, copied).
   * snapshot codec — published quantile state is a sorted ``(n, 2)``
@@ -44,6 +45,8 @@ __all__ = [
     "quant_init",
     "quant_insert",
     "quant_merge",
+    "quant_fold",
+    "exact_batch",
     "quant_table",
     "quant_band",
     "QuantileResult",
@@ -459,28 +462,10 @@ def quant_init(cap: int, device=None) -> QuantState:
     )
 
 
-def _quant_pack(v, rmin, rmax, wv, thresh, cap, weight) -> QuantState:
-    """Greedy GK compress of sorted interval tuples (..., n) into ``cap`` slots.
-
-    Folds tuple i forward into i+1 while the merged band stays within
-    ``thresh``; the first and last live tuples always emit.  Tuples with
-    EQUAL values are always folded together (their certified own-value
-    masses ``wv`` add), so the output values are strictly increasing — the
-    snapshot-codec contract.  If more distinct tuples survive than ``cap``,
-    the overflow keeps folding into the last slot — still interval-sound,
-    just wider bands near the maximum.  One ``quant_pack`` launch for every
-    row on the leading axes (the reference's ``lax.fori_loop``).
-    """
-    from repro_torch.kernels.ops import quant_pack
-
-    lead, n = v.shape[:-1], v.shape[-1]
-    rows = [a.reshape(-1, n).contiguous() for a in (v, rmin, rmax, wv)]
-    out = quant_pack(*rows, thresh.expand(lead).reshape(-1).contiguous(), cap)
-    return QuantState(*(a.reshape(*lead, cap) for a in out), weight=weight)
-
-
-def _suffix_min(x: torch.Tensor) -> torch.Tensor:
-    return torch.cummin(x.flip(-1), dim=-1).values.flip(-1)
+def _rows(x: QuantState, lead: int):
+    """``x``'s leaves with their first ``lead`` axes flattened into one row
+    axis, contiguous (the merge kernel's operands)."""
+    return tuple(t.reshape(-1, *t.shape[lead:]).contiguous() for t in x)
 
 
 def quant_merge(a: QuantState, b: QuantState, eps: float, cap: int) -> QuantState:
@@ -490,44 +475,30 @@ def quant_merge(a: QuantState, b: QuantState, eps: float, cap: int) -> QuantStat
     rebuild every tuple's rank interval as its own interval plus the other
     summary's certified interval at that value, then greedy-pack.  The sort
     is stable (equal values: ``a``'s first), as the reference's.  The
-    cumulative sums run in torch's order, not XLA's: answers agree with the
-    reference to f32 rounding of W.
+    cumulative sums are f64 prefixes rounded to f32 (torch's CPU order, not
+    XLA's): answers agree with the reference to f32 rounding of W.  One
+    ``quant_merge_pack`` launch for every row on the leading axes.
     """
-    v = torch.cat([a.values, b.values], -1)
-    g = torch.cat([a.g, b.g], -1)
-    d = torch.cat([a.delta, b.delta], -1)
-    wv = torch.cat([a.wv, b.wv], -1)
-    la, n = a.values.shape[-1], v.shape[-1]
-    idx = torch.arange(n, device=v.device)
-    order = torch.argsort(v, dim=-1, stable=True)  # ties: A entries first
-    v, g, d, wv = (torch.gather(t, -1, order) for t in (v, g, d, wv))
-    is_a = order < la
-    live = torch.isfinite(v)
+    from repro_torch.kernels import ops
 
-    cum_a = torch.cumsum(torch.where(is_a, g, 0.0), -1)
-    cum_b = torch.cumsum(torch.where(is_a, 0.0, g), -1)
-    rmin = cum_a + cum_b  # own inclusive rank + other mass sorted before
-    own_cum = torch.where(is_a, cum_a, cum_b)
+    lead = a.weight.shape
+    out = ops.quant_merge_pack(_rows(a, len(lead)), _rows(b, len(lead)), 2.0 * eps, cap)
+    return QuantState(*(t.reshape((*lead, *t.shape[1:])) for t in out))
 
-    pos_a = torch.where(is_a & live, idx, n)
-    pos_b = torch.where(~is_a & live, idx, n)
-    tail = torch.full(v.shape[:-1] + (1,), n, dtype=idx.dtype, device=v.device)
-    next_a = torch.cat([_suffix_min(pos_a)[..., 1:], tail], -1)
-    next_b = torch.cat([_suffix_min(pos_b)[..., 1:], tail], -1)
-    n_other = torch.where(is_a, next_b, next_a)
-    w_other = torch.where(is_a, b.weight[..., None], a.weight[..., None])
-    safe = n_other.clamp(0, n - 1)
-    v_s, wv_s = torch.gather(v, -1, safe), torch.gather(wv, -1, safe)
-    up = (torch.gather(own_cum, -1, safe) + torch.gather(d, -1, safe)
-          - wv_s * (v_s > v).to(torch.float32))
-    upper_other = torch.where(n_other < n, up, w_other)
-    rmax = own_cum + d + upper_other
 
-    rmin = torch.cummax(rmin, dim=-1).values
-    rmax = torch.maximum(rmax, rmin)
-    weight = a.weight + b.weight
-    thresh = torch.tensor(2.0 * eps, dtype=torch.float32) * weight
-    return _quant_pack(v, rmin, rmax, wv, thresh, cap, weight)
+def quant_fold(coord: QuantState, shipped: QuantState, eps: float, cap: int) -> QuantState:
+    """``quant_merge`` of each of m shipped summaries into ``coord``, site 0 first.
+
+    coord: leaves (..., cap) and weight (...); shipped: (..., m, lb) and
+    (..., m).  A non-sender ships the all-pad summary, and is merged all the
+    same (its merge re-rounds the prefix sums).  One ``quant_fold`` launch
+    for every coordinator on the leading axes: the m merges run inside it.
+    """
+    from repro_torch.kernels import ops
+
+    lead = coord.weight.shape
+    out = ops.quant_fold(_rows(coord, len(lead)), _rows(shipped, len(lead)), 2.0 * eps, cap)
+    return QuantState(*(t.reshape((*lead, *t.shape[1:])) for t in out))
 
 
 def _segment_sum(vs: torch.Tensor, ws: torch.Tensor):
@@ -558,13 +529,19 @@ def quant_insert(state: QuantState, values, weights, eps: float) -> QuantState:
     n = values.shape[-1]
     if n == 0:  # nothing to absorb
         return state
+    return quant_merge(state, exact_batch(values, weights), eps, cap)
+
+
+def exact_batch(values: torch.Tensor, weights: torch.Tensor) -> QuantState:
+    """A weighted batch (..., n) as an exact summary: one tuple per distinct
+    value (its summed weight as g and wv, delta 0), ascending, with ``+inf``
+    at zero-weight values and in the pad tail."""
     order = torch.argsort(values, dim=-1, stable=True)
     vs, ws = torch.gather(values, -1, order), torch.gather(weights, -1, order)
     g, seg = _segment_sum(vs, ws)
     v = torch.full_like(vs, float("inf")).scatter_reduce(-1, seg, vs, "amin")
     v = torch.where(g > 0, v, float("inf"))  # drop zero-weight slots and pad tails
-    batch = QuantState(values=v, g=g, delta=torch.zeros_like(g), wv=g, weight=ws.sum(-1))
-    return quant_merge(state, batch, eps, cap)
+    return QuantState(values=v, g=g, delta=torch.zeros_like(g), wv=g, weight=ws.sum(-1))
 
 
 def quant_table(state: QuantState) -> np.ndarray:

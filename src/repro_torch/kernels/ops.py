@@ -14,10 +14,15 @@
   on the tensor cores) or of ``csrc/flash_attention.cu`` (f32).
 * ``mg_scan`` — weighted Misra--Gries over an item stream for S summaries at
   once, one launch of ``csrc/mg_scan.cu`` (the heavy-hitter kind's
-  ``mg_update_stream``; no Pallas kernel: the reference's ``lax.scan``).
-* ``quant_pack`` — the greedy GK compress of T rows of sorted tuples, one
-  launch of ``csrc/quant_pack.cu`` (the quantile kind's ``_quant_pack``; no
-  Pallas kernel: the reference's ``lax.fori_loop``).
+  ``mg_update_stream``; no Pallas kernel: the reference's ``lax.scan``):
+  the slots in registers for k <= ``MG_REGISTER_SLOTS``, in shared memory
+  above, chosen by k and counted as one kernel.
+* ``quant_merge_pack`` — merge T rows of two GK summaries and pack each into
+  ``cap`` slots, one launch of ``csrc/quant_merge.cu`` (the quantile kind's
+  ``quant_merge``, which ends in the reference's ``lax.fori_loop`` of
+  ``_quant_pack``; no Pallas kernel).
+* ``quant_fold`` — the coordinator's merge of m shipped summaries, site by
+  site, in one launch of the same kernel.
 
 Dispatch is by the tensors' device, as in fd_ops.py: CUDA launches the
 kernel or raises, CPU runs the plain version from ``ref.py``.
@@ -58,17 +63,17 @@ __all__ = [
     "mg_scan",
     "quadform",
     "quadform_packed",
-    "quant_pack",
+    "quant_fold",
+    "quant_merge_pack",
     "reset_launch_counts",
 ]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # One source for one sketch (T = 1, counted as quadform) and a packed stack
 # (T > 1, counted as quadform_packed), as for the FD kernels.
 QUADFORM = CudaKernel("quadform.cu", "quadform_launch", [_P, _P, _P, _I, _I, _I, _I])
 QUADFORM_PACKED = CudaKernel("quadform.cu", "quadform_launch", [_P, _P, _P, _I, _I, _I, _I])
 LEVSCORE = CudaKernel("levscore.cu", "levscore_launch", [_P, _P, _P, _P, _L, _I, _I])
-_F = ctypes.c_float
 _FLASH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F]
 FLASH_ATTENTION = CudaKernel("flash_attention.cu", "flash_attention_launch", _FLASH_ARGS)
 FLASH_ATTENTION_BF16 = CudaKernel("flash_attention_wgmma.cu", "flash_attention_bf16_launch",
@@ -80,8 +85,19 @@ _FLASH_BY_DTYPE = {torch.float32: FLASH_ATTENTION, torch.bfloat16: FLASH_ATTENTI
 # its partial scores (0 where it does not split the contraction).
 LEVSCORE_SCRATCH = ("levscore_scratch_floats", [_P, _P, _I, _I])
 
-MG_SCAN = CudaKernel("mg_scan.cu", "mg_scan_launch", [_P] * 10 + [_I, _I, _I])
-QUANT_PACK = CudaKernel("quant_pack.cu", "quant_pack_launch", [_P] * 9 + [_I, _I, _I])
+# mg_scan's two routes, chosen by k: a summary's slots in registers (k <=
+# MG_REGISTER_SLOTS, 16 a lane) or in shared memory.
+MG_REGISTER_SLOTS = 512
+MG_SCAN = CudaKernel("mg_scan.cu", "mg_scan_registers_launch", [_P] * 10 + [_I, _I, _I])
+MG_SCAN_SHARED = CudaKernel("mg_scan.cu", "mg_scan_shared_launch", [_P] * 10 + [_I, _I, _I])
+# One kernel behind two entries: T merges of row pairs (quant_merge_pack) and
+# T coordinators' folds of m summaries each (quant_fold).
+QUANT_MERGE_PACK = CudaKernel("quant_merge.cu", "quant_merge_pack_launch",
+                              [_P] * 16 + [_I, _I, _I, _I, _F])
+QUANT_FOLD = CudaKernel("quant_merge.cu", "quant_fold_launch", [_P] * 16 + [_I] * 5 + [_F])
+# csrc/quant_merge.cu's answer to how many floats of scratch a launch needs
+# (0 where a row's merge fits in shared memory).
+QUANT_SCRATCH = ("quant_merge_scratch_floats", [_I, _I, _I, _I])
 
 # Every hand-written kernel of the port by name, one for each Pallas kernel
 # of the reference and one for each of its sequential loops, with its
@@ -90,7 +106,8 @@ KERNELS = {"fd_gram": (FD_GRAM,), "fd_gram_batched": (FD_GRAM_BATCHED,),
            "fd_project": (FD_PROJECT,), "fd_project_batched": (FD_PROJECT_BATCHED,),
            "quadform": (QUADFORM,), "quadform_packed": (QUADFORM_PACKED,),
            "levscore": (LEVSCORE,), "flash_attention": (FLASH_ATTENTION_BF16, FLASH_ATTENTION),
-           "mg_scan": (MG_SCAN,), "quant_pack": (QUANT_PACK,)}
+           "mg_scan": (MG_SCAN, MG_SCAN_SHARED), "quant_merge_pack": (QUANT_MERGE_PACK,),
+           "quant_fold": (QUANT_FOLD,)}
 
 
 def launch_counts() -> dict[str, int]:
@@ -285,31 +302,74 @@ def mg_scan(keys, counts, weight, shrink, item_keys, item_weights):
     if b == 0 or s_ == 0:
         return tuple(a.clone() for a in (keys, counts, weight, shrink))
     out = tuple(torch.empty_like(a) for a in (keys, counts, weight, shrink))
-    MG_SCAN.launch(keys.device, keys.data_ptr(), counts.data_ptr(), weight.data_ptr(),
-                   shrink.data_ptr(), item_keys.data_ptr(), item_weights.data_ptr(),
-                   *(a.data_ptr() for a in out), s_, k, b)
+    (MG_SCAN if k <= MG_REGISTER_SLOTS else MG_SCAN_SHARED).launch(
+        keys.device, keys.data_ptr(), counts.data_ptr(), weight.data_ptr(), shrink.data_ptr(),
+        item_keys.data_ptr(), item_weights.data_ptr(), *(a.data_ptr() for a in out), s_, k, b)
     return out
 
 
-def quant_pack(v, rmin, rmax, wv, thresh, cap: int):
-    """Greedy GK compress of T rows of sorted interval tuples into ``cap`` slots.
+def _summaries_on_cpu(name: str, a, b, cap: int, fold: bool) -> bool:
+    """Check two stacks of summaries for the merge kernel; True on the CPU.
 
-    v, rmin, rmax, wv (T, n) f32, each row sorted by value with ``+inf``
-    pads last; thresh (T,) f32 -> (values, g, delta, wv), each (T, cap).
-    See ``ref.ref_quant_pack`` for the rule.
+    a: (values, g, delta, wv) (T, la) and weight (T,); b: the same with
+    (T, lb) and (T,), or for a fold (T, m, lb) and (T, m), where la must be
+    ``cap`` (each merge's output is the next one's input).
     """
-    if (v.ndim != 2 or rmin.shape != v.shape or rmax.shape != v.shape or wv.shape != v.shape
-            or thresh.shape != v.shape[:1] or cap < 1):
+    if len(a) != 5 or len(b) != 5:
+        raise ValueError(f"{name} takes (values, g, delta, wv, weight) summaries")
+    t, la = a[0].shape if a[0].ndim == 2 else (-1, -1)
+    lead = b[4].shape
+    lb = b[0].shape[-1] if b[0].ndim == len(lead) + 1 else -1
+    if (t < 0 or lb < 0 or any(x.shape != (t, la) for x in a[:4]) or a[4].shape != (t,)
+            or lead[:1] != (t,) or len(lead) != 1 + fold
+            or any(x.shape != (*lead, lb) for x in b[:4]) or cap < 1 or (fold and la != cap)):
         raise ValueError(
-            f"quant_pack shape mismatch: v{tuple(v.shape)} rmin{tuple(rmin.shape)} "
-            f"rmax{tuple(rmax.shape)} wv{tuple(wv.shape)} thresh{tuple(thresh.shape)} cap={cap}")
-    if operands_on_cpu(v=v, rmin=rmin, rmax=rmax, wv=wv, thresh=thresh):
-        return ref.ref_quant_pack(v, rmin, rmax, wv, thresh, cap)
-    t, n = v.shape
-    out = (torch.full((t, cap), float("inf"), device=v.device),
-           *(torch.zeros(t, cap, device=v.device) for _ in range(3)))
-    if t and n:
-        QUANT_PACK.launch(v.device, v.data_ptr(), rmin.data_ptr(), rmax.data_ptr(),
-                          wv.data_ptr(), thresh.data_ptr(), *(a.data_ptr() for a in out),
-                          t, n, cap)
+            f"{name} shape mismatch: a {[tuple(x.shape) for x in a]}, "
+            f"b {[tuple(x.shape) for x in b]}, cap={cap}")
+    return operands_on_cpu(**{f"{s}{i}": x for s, xs in (("a", a), ("b", b))
+                              for i, x in enumerate(xs)})
+
+
+def _merge_launch(kernel: CudaKernel, a, b, two_eps: float, cap: int, *m: int):
+    t, la = a[0].shape
+    lb = b[0].shape[-1]
+    dev = a[0].device
+    # The kernel writes every slot, the pads too.
+    out = (*(torch.empty(t, cap, device=dev) for _ in range(4)), torch.empty(t, device=dev))
+    if t == 0:
+        return out
+    floats = kernel.query(dev, *QUANT_SCRATCH, t, la, lb, cap)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    kernel.launch(dev, *(x.data_ptr() for x in (*a, *b, *out)),
+                  scratch.data_ptr() if floats else None, t, *m, la, lb, cap, two_eps)
     return out
+
+
+def quant_merge_pack(a, b, two_eps: float, cap: int):
+    """Merge T rows of two GK summaries and pack each into ``cap`` slots.
+
+    a, b: ``(values, g, delta, wv, weight)``, leaves (T, la) / (T, lb) f32
+    and weights (T,); each row's finite values ascending, ``b`` may hold
+    ``+inf`` pads anywhere -> the merged (values, g, delta, wv) (T, cap) and
+    weight (T,), packed at ``thresh = f32(two_eps) * weight``.  See
+    ``ref.ref_quant_merge_pack`` for the rule.
+    """
+    if _summaries_on_cpu("quant_merge_pack", a, b, cap, fold=False):
+        return ref.ref_quant_merge_pack(a, b, two_eps, cap)
+    return _merge_launch(QUANT_MERGE_PACK, a, b, two_eps, cap)
+
+
+def quant_fold(a, b, two_eps: float, cap: int):
+    """Fold m shipped summaries into T coordinators', site 0 first, in one launch.
+
+    a: ``(values, g, delta, wv, weight)``, leaves (T, cap) and weights (T,);
+    b: leaves (T, m, lb) and weights (T, m) -> ``a`` after m
+    ``quant_merge_pack`` steps, each at ``f32(two_eps)`` times its merged
+    weight.  Every site is merged, all-pad ones too.  m = 0 answers ``a``
+    without a launch.
+    """
+    if _summaries_on_cpu("quant_fold", a, b, cap, fold=True):
+        return ref.ref_quant_fold(a, b, two_eps, cap)
+    if b[4].shape[1] == 0:
+        return tuple(x.clone() for x in a)
+    return _merge_launch(QUANT_FOLD, a, b, two_eps, cap, b[4].shape[1])

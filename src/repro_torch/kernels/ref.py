@@ -2,11 +2,14 @@
 
 The wrappers in ``fd_ops.py`` / ``ops.py`` run these for tensors that lie
 on the CPU; ``chip_smoke.py`` holds each CUDA kernel against them on the
-card.  All products accumulate in f32, as the reference's
+card (the sequential kernels against them run on CPU copies of the
+inputs, bit for bit).  All products accumulate in f32, as the reference's
 ``preferred_element_type=f32`` does.  ``ref_mg_scan`` and ``ref_quant_pack``
-are the two sequential loops the reference runs as XLA code (a ``lax.scan``
+are the sequential loops the reference runs as XLA code (a ``lax.scan``
 and a ``lax.fori_loop``), written step by step with the f32 additions and
-comparisons in the order the reference makes them.
+comparisons in the order the reference makes them; ``ref_quant_merge_pack``
+is the quantile merge that ends in the pack, and ``ref_quant_fold`` its loop
+over the shipped summaries of m sites.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ __all__ = [
     "ref_mg_scan",
     "ref_quadform",
     "ref_quadform_packed",
+    "ref_quant_fold",
+    "ref_quant_merge_pack",
     "ref_quant_pack",
     "shrink_weights",
     "spectra_weights",
@@ -280,3 +285,76 @@ def ref_quant_pack(v, rmin, rmax, wv, thresh, cap: int):
         # wv only carries across equal-value folds.
         acc_wv = torch.where(same[:, i] & live_i, acc_wv + wv[:, i], 0.0)
     return out_v, out_g, out_d, out_wv
+
+
+def _suffix_min(x: torch.Tensor) -> torch.Tensor:
+    return torch.cummin(x.flip(-1), dim=-1).values.flip(-1)
+
+
+def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sums along the last axis, each prefix summed in f64 left to
+    right and rounded to f32: what torch's CPU ``cumsum`` of f32 gives, and
+    what the merge kernel computes (a CUDA ``cumsum`` of f32 is a parallel f32
+    scan, which rounds elsewhere)."""
+    return torch.cumsum(x.double(), -1).float()
+
+
+def ref_quant_merge_pack(a, b, two_eps: float, cap: int):
+    """Merge two rows of GK summaries and pack the result into ``cap`` slots.
+
+    a, b: ``(values, g, delta, wv, weight)`` with (T, la) / (T, lb) tuples and
+    (T,) weights; each row's finite values ascending, ``+inf`` pads anywhere
+    in ``b`` (a pad holds g = delta = wv = 0).  Sorts the union stably (equal
+    values: ``a``'s first), rebuilds each tuple's rank interval as its own
+    plus the other summary's certified interval at that value, and packs at
+    ``thresh = f32(two_eps) * (a.weight + b.weight)`` -> the merged
+    ``(values, g, delta, wv, weight)``, (T, cap) and (T,).
+    """
+    v = torch.cat([a[0], b[0]], -1)
+    g = torch.cat([a[1], b[1]], -1)
+    d = torch.cat([a[2], b[2]], -1)
+    wv = torch.cat([a[3], b[3]], -1)
+    la, n = a[0].shape[-1], v.shape[-1]
+    idx = torch.arange(n, device=v.device)
+    order = torch.argsort(v, dim=-1, stable=True)  # ties: A entries first
+    v, g, d, wv = (torch.gather(t, -1, order) for t in (v, g, d, wv))
+    is_a = order < la
+    live = torch.isfinite(v)
+
+    cum_a = _prefix_sum(torch.where(is_a, g, 0.0))
+    cum_b = _prefix_sum(torch.where(is_a, 0.0, g))
+    rmin = cum_a + cum_b  # own inclusive rank + other mass sorted before
+    own_cum = torch.where(is_a, cum_a, cum_b)
+
+    pos_a = torch.where(is_a & live, idx, n)
+    pos_b = torch.where(~is_a & live, idx, n)
+    tail = torch.full(v.shape[:-1] + (1,), n, dtype=idx.dtype, device=v.device)
+    next_a = torch.cat([_suffix_min(pos_a)[..., 1:], tail], -1)
+    next_b = torch.cat([_suffix_min(pos_b)[..., 1:], tail], -1)
+    n_other = torch.where(is_a, next_b, next_a)
+    w_other = torch.where(is_a, b[4][..., None], a[4][..., None])
+    safe = n_other.clamp(0, n - 1)
+    v_s, wv_s = torch.gather(v, -1, safe), torch.gather(wv, -1, safe)
+    up = (torch.gather(own_cum, -1, safe) + torch.gather(d, -1, safe)
+          - wv_s * (v_s > v).to(torch.float32))
+    upper_other = torch.where(n_other < n, up, w_other)
+    rmax = own_cum + d + upper_other
+
+    rmin = torch.cummax(rmin, dim=-1).values
+    rmax = torch.maximum(rmax, rmin)
+    weight = a[4] + b[4]
+    thresh = torch.tensor(two_eps, dtype=torch.float32, device=v.device) * weight
+    return (*ref_quant_pack(v, rmin, rmax, wv, thresh, cap), weight)
+
+
+def ref_quant_fold(a, b, two_eps: float, cap: int):
+    """Fold m shipped summaries into a coordinator's, site 0 first.
+
+    a: ``(values, g, delta, wv, weight)`` with (T, cap) tuples and (T,)
+    weights; b: the same with (T, m, lb) and (T, m).  Every site is merged,
+    the all-pad ones too: the pack's prefix sums round, so an all-pad merge
+    need not leave the bits as they were.
+    """
+    for j in range(b[0].shape[1]):
+        a = ref_quant_merge_pack(a, tuple(x[:, j] for x in b), two_eps, cap)
+    return a

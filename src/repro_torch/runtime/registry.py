@@ -908,8 +908,8 @@ class ShardQuantileProtocol(_ShardCheckpointMixin, QuantileProtocol):
 
     ``sites`` is ignored: value placement is the site axis of the batch.
     Backed by ``core.distributed.quant_p1_step`` (per-site ``QuantState``,
-    ``quant_merge`` coordinator folding, each ending in one ``quant_pack``
-    launch).
+    inserted with one ``quant_merge_pack`` launch, and the coordinator's
+    fold of the shipped summaries in one ``quant_fold`` launch).
     """
 
     def __init__(self, name: str, *, m: int, eps: float = 0.1, q_cap: int = 0, device=None):

@@ -51,7 +51,7 @@ def test_cuda_kernels_match_plain(t, l, n, d):
     assert launched == {"fd_gram": one, "fd_gram_batched": 1 - one, "fd_project": one,
                         "fd_project_batched": 1 - one, "quadform": 1 + one,
                         "quadform_packed": 1 - one, "levscore": 0, "flash_attention": 0,
-                        "mg_scan": 0, "quant_pack": 0}
+                        "mg_scan": 0, "quant_merge_pack": 0, "quant_fold": 0}
 
     # The whole shrink, sign-free: B'^T B' and the shrink mass delta.
     out, delta = ops.fd_shrink(b)
@@ -259,43 +259,107 @@ def _mg_inputs(s, k, b, gen):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,k,b", [(50, 200, 1250), (3, 7, 100), (1, 40, 33)])
-def test_cuda_mg_scan_matches_plain_bit_for_bit(s, k, b):
-    """``mg_scan`` against the plain step-by-step loop, bit for bit (the same
-    f32 additions and comparisons in the same order), one launch a call.
-    Needs a CUDA card and nvcc: ``pytest -m cuda`` there."""
+@pytest.mark.parametrize("s,k,b,minus_one", [
+    (50, 200, 1250, False),  # path 5's site scan: route 1, 7 slots a lane
+    (3, 7, 100, False),
+    (1, 40, 33, False),
+    (3, 600, 400, False),  # route 2: the slots in shared memory
+    (5, 64, 300, True),  # items keyed -1 hit every empty slot
+    (4, 1, 60, False),  # one counter
+])
+def test_cuda_mg_scan_matches_plain_bit_for_bit(s, k, b, minus_one):
+    """``mg_scan`` against the plain step-by-step loop on CPU copies of its
+    inputs, bit for bit (the same f32 additions and comparisons in the same
+    order), one launch a call of the route k chooses.  Needs a CUDA card and
+    nvcc: ``pytest -m cuda`` there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(s + k + b)
     args = _mg_inputs(s, k, b, gen)
-    before = ops.launch_counts()["mg_scan"]
+    if minus_one:
+        args[4][:, ::5] = -1
+    route = ops.MG_SCAN if k <= ops.MG_REGISTER_SLOTS else ops.MG_SCAN_SHARED
+    before, total = route.launches, ops.launch_counts()["mg_scan"]
     got = ops.mg_scan(*args)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["mg_scan"] == before + 1
-    for g, w in zip(got, ref.ref_mg_scan(*args)):
-        assert torch.equal(g, w)
+    assert route.launches == before + 1 and ops.launch_counts()["mg_scan"] == total + 1
+    for g, w in zip(got, ref.ref_mg_scan(*(a.cpu() for a in args))):
+        assert torch.equal(g.cpu(), w)
+
+
+def _q_summaries(rng, rows, cap, n, eps):
+    """``rows`` packed GK summaries on the CPU (``quant_insert`` of ``n``
+    lognormal values on a grid of 0.25, so values repeat across summaries,
+    with integer weights, some zero)."""
+    from repro_torch.core import quantiles as tq
+
+    values = np.round(rng.lognormal(3.0, 1.5, (rows, n)) * 4.0) / 4.0
+    weights = rng.integers(0, 100, (rows, n)).astype(np.float32)
+    empty = tq.QuantState(*(x.expand(rows, *x.shape).clone() for x in tq.quant_init(cap, "cpu")))
+    return tq.quant_insert(empty, torch.tensor(values, dtype=torch.float32),
+                           torch.tensor(weights), eps)
+
+
+def _q_batch(rng, rows, n):
+    """A site-insert batch (``exact_batch``) on the CPU: +inf holes at its
+    zero-weight values, in the middle of each row."""
+    from repro_torch.core import quantiles as tq
+
+    values = np.round(rng.lognormal(3.0, 1.5, (rows, n)) * 4.0) / 4.0
+    weights = rng.integers(0, 100, (rows, n)).astype(np.float32)
+    weights[:, ::7] = 0.0
+    return tq.exact_batch(torch.tensor(values, dtype=torch.float32), torch.tensor(weights))
+
+
+def _same_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.cpu(), w), (g, w)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,n,cap", [(50, 1058, 808), (1, 1616, 808), (4, 5000, 60)])
-def test_cuda_quant_pack_matches_plain_bit_for_bit(t, n, cap):
-    """``quant_pack`` against the plain step-by-step loop, bit for bit, on
-    sorted tuples with duplicate values, pads and more tuples than ``cap``
-    (n = 5000 also crosses the kernel's 2048-tuple staging chunks).  Needs a
-    CUDA card and nvcc: ``pytest -m cuda`` there."""
+@pytest.mark.parametrize("t,la,lb,batch", [
+    (50, 808, 250, True),  # path 5's site inserts: zero-weight +inf holes inside b
+    (1, 808, 808, False),  # a merge of two full summaries
+    (3, 37, 23, False),  # small and ragged, values repeated across the lists
+    (2, 3000, 3000, True),  # too large for shared memory: the rows' arrays in scratch
+])
+def test_cuda_quant_merge_pack_matches_plain_bit_for_bit(t, la, lb, batch):
+    """``quant_merge_pack`` against the plain merge and step-by-step pack on
+    CPU copies of its inputs, bit for bit (f64 prefix sums rounded to f32,
+    then the plain version's f32 operations in its order), one launch a
+    call.  Needs a CUDA card and nvcc: ``pytest -m cuda`` there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
-    gen = torch.Generator(device="cuda").manual_seed(t + n + cap)
-    v = torch.randint(0, n // 2, (t, n), device="cuda", generator=gen).float().sort(-1).values
-    v[:, n - n // 10:] = float("inf")
-    g = torch.rand(t, n, device="cuda", generator=gen)
-    rmin = torch.cumsum(g, -1)
-    rmax = rmin + torch.rand(t, n, device="cuda", generator=gen)
-    wv = g * torch.rand(t, n, device="cuda", generator=gen)
-    thresh = rmin[:, -1] * (8.0 / cap)
-    before = ops.launch_counts()["quant_pack"]
-    got = ops.quant_pack(v, rmin, rmax, wv, thresh, cap)
+    rng = np.random.default_rng(t + la + lb)
+    a = _q_summaries(rng, t, la, 4 * la, 0.0025)
+    b = _q_batch(rng, t, lb) if batch else _q_summaries(rng, t, lb, 4 * lb, 0.0025)
+    before = ops.launch_counts()["quant_merge_pack"]
+    got = ops.quant_merge_pack(tuple(x.cuda() for x in a), tuple(x.cuda() for x in b), 0.02, la)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["quant_pack"] == before + 1
-    for a, b in zip(got, ref.ref_quant_pack(v, rmin, rmax, wv, thresh, cap)):
-        assert torch.equal(a, b)
+    assert ops.launch_counts()["quant_merge_pack"] == before + 1
+    _same_bits(got, ref.ref_quant_merge_pack(a, b, 0.02, la))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [50, 4])
+def test_cuda_quant_fold_matches_plain_bit_for_bit(m):
+    """``quant_fold``: a coordinator of cap 808 folds m shipped summaries,
+    every third site an all-pad non-sender, in one launch, bit for bit
+    against the plain per-site loop on CPU copies.  Needs a CUDA card and
+    nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    rng = np.random.default_rng(m)
+    cap = 808
+    coord = tuple(x[:1] for x in _q_summaries(rng, 1, cap, 3000, 0.005))
+    shipped = _q_summaries(rng, m, cap, 1500, 0.0025)
+    send = torch.arange(m) % 3 != 1
+    pads = (float("inf"), 0.0, 0.0, 0.0)
+    shipped = tuple(torch.where(send[:, None], x, p)[None] for x, p in zip(shipped[:4], pads)) + (
+        torch.where(send, shipped.weight, 0.0)[None],)
+    before = ops.launch_counts()["quant_fold"]
+    got = ops.quant_fold(tuple(x.cuda() for x in coord), tuple(x.cuda() for x in shipped),
+                         0.01, cap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["quant_fold"] == before + 1
+    _same_bits(got, ref.ref_quant_fold(coord, shipped, 0.01, cap))

@@ -112,10 +112,13 @@ def test_wrappers_check_operands_and_count_only_launches():
     ops.flash_attention(torch.ones(1, 2, 3, 8), torch.ones(1, 1, 3, 8), torch.ones(1, 1, 3, 8))
     ops.mg_scan(torch.full((2, 3), -1, dtype=torch.int32), torch.zeros(2, 3), torch.zeros(2),
                 torch.zeros(2), torch.ones(2, 4, dtype=torch.int32), torch.ones(2, 4))
-    ops.quant_pack(*(torch.ones(2, 5) for _ in range(4)), torch.ones(2), 3)
+    summary = (*(torch.ones(2, 5) for _ in range(4)), torch.ones(2))
+    ops.quant_merge_pack(summary, summary, 0.1, 3)
+    ops.quant_fold(summary, tuple(x[:, None] for x in summary), 0.1, 5)
     assert ops.launch_counts() == dict.fromkeys(
         ("fd_gram", "fd_gram_batched", "fd_project", "fd_project_batched", "quadform",
-         "quadform_packed", "levscore", "flash_attention", "mg_scan", "quant_pack"), 0)
+         "quadform_packed", "levscore", "flash_attention", "mg_scan", "quant_merge_pack",
+         "quant_fold"), 0)
 
 
 def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
@@ -127,7 +130,7 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
 
 # The f32 kernels' sources, and what would put tensor cores in them.
 F32_SOURCES = ("fd_gram.cu", "fd_project.cu", "quadform.cu", "levscore.cu", "flash_attention.cu",
-               "f32_staging.cuh", "mg_scan.cu", "quant_pack.cu")
+               "f32_staging.cuh", "mg_scan.cu", "quant_merge.cu")
 TENSOR_CORE = re.compile(r"wgmma|mma\.sync|wmma|tf32", re.IGNORECASE)
 
 
