@@ -16,6 +16,8 @@ the CUDA toolkit:
    shared loads (``LDS``, ``LDS.128``), ``cp.async`` copies (``LDGSTS``)
    and tensor-core instructions (``HMMA``, ``HGMMA``): the f32 kernels are
    IEEE f32 FMAs on the CUDA cores, so any of the last two fails the run;
+   ``flash_attention.cu`` must also hold TMA loads (``UTMALDG``) and its
+   kernels no spills;
 2. calls each kernel's wrapper at the shapes the main path gives it and
    holds the result against its plain PyTorch version on the same inputs
    (max |kernel - plain| <= KERNEL_RTOL * max |plain|) and against a second
@@ -63,9 +65,11 @@ the CUDA toolkit:
 8. holds ``flash_attention`` against its plain version at the serving
    path's shape (b = 4, hq = 16, hkv = 8, s = 4096, dh = 128, bf16, causal:
    each element within one bf16 rounding of itself, ``BF16_ROUNDING``, of
-   the plain version in f32 on the same bf16 inputs) and at a ragged,
+   the plain version in f32 on the same bf16 inputs), at a ragged,
    windowed, soft-capped one in bf16 (the same check) and in f32
-   (``KERNEL_RTOL``), timing SDPA beside the serving shape;
+   (``KERNEL_RTOL``), and at the f32 serving check's shape (b = 1, hq = 16,
+   hkv = 8, s = 512 and 520, dh = 128, f32, causal: ``KERNEL_RTOL``), timing
+   SDPA beside the causal shapes;
 9. serves Qwen3-0.6B (``configs/qwen3_0_6b.py``, all 28 layers, random bf16
    weights from ``--seed``, ``attn_impl="pallas"``) through
    ``ServeEngine.generate``: 4 random prompts of 4096 tokens, 32 new tokens
@@ -77,7 +81,11 @@ the CUDA toolkit:
 10. checks serving in f32 (the same model, batch 1, a 512-token prompt, 8
    decode steps): each step's logits within 2e-3 of the full forward at that
    position (``tests/test_serve.py``'s bound), and the kernel's prefill
-   within 2e-3 of the plain ``xla`` prefill;
+   within 2e-3 of the plain ``xla`` prefill; the f32 kernel must run once a
+   layer in the prefill and in each full forward (and its second pass as
+   often where ``flash_split`` splits); one more prefill under
+   ``torch.profiler`` gives its wall time and the kernel's share of its
+   device time;
 11. before the serving phases, packed multi-tenant ingest: two
    ``StreamingPipeline``s (m = 8, d = 1024, eps = 0.02, publishing every 3
    steps), each with 8 P2 matrix tenants (3 x 4096, 3 x 2048, 2 x 1024
@@ -125,9 +133,10 @@ the CUDA toolkit:
    the garbage collector's pauses in those waves.
 
 Launch counts are set to 0 just before each path (the P2 path, the
-pipeline, the packed pipeline, path 5, the serving run) and read just
-after; the serial pipeline of 11 runs before its window.  Comparisons of a kernel with its plain
-version are made outside those windows.  It prints the card's name and
+pipeline, the packed pipeline, path 5, the serving run, the f32 serving
+check) and read just after; the serial pipeline of 11 runs before its
+window.  Comparisons of a kernel with its plain version are made outside
+those windows.  It prints the card's name and
 power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failed check exits non-zero; so does a machine
 without CUDA, or a directory without the package.
@@ -1731,9 +1740,10 @@ def attention_pairs(s: int, window: int) -> int:
 
 def flash_cases(torch, seed: int, prompt_len: int) -> list[dict]:
     """``flash_attention`` at the serving path's shape (bf16, Qwen3-0.6B's
-    heads, ``SERVE_BATCH`` prompts of ``prompt_len``) and at a ragged,
-    windowed, soft-capped one in bf16 and in f32, on random inputs from
-    ``seed``."""
+    heads, ``SERVE_BATCH`` prompts of ``prompt_len``), at a ragged,
+    windowed, soft-capped one in bf16 and in f32, and at the f32 serving
+    check's prefill (``CHECK_PROMPT``) and its last full forward, on random
+    inputs from ``seed``."""
     from repro_torch.kernels import ops, ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1743,6 +1753,9 @@ def flash_cases(torch, seed: int, prompt_len: int) -> list[dict]:
         ("serving prefill", (SERVE_BATCH, 16, 8, prompt_len, 128, 0, 0.0, torch.bfloat16)),
         ("ragged, windowed, soft-capped", (1, 8, 2, 1000, 64, 256, 30.0, torch.bfloat16)),
         ("ragged, windowed, soft-capped", (1, 8, 2, 1000, 64, 256, 30.0, torch.float32)),
+        ("f32 serving check", (1, 16, 8, CHECK_PROMPT, 128, 0, 0.0, torch.float32)),
+        ("f32 serving check", (1, 16, 8, CHECK_PROMPT + CHECK_STEPS, 128, 0, 0.0,
+                               torch.float32)),
     ):
         q, k, v = (torch.randn(b, h, s, dh, device=DEV, generator=gen).to(dtype)
                    for h in (hq, hkv, hkv))
@@ -1764,7 +1777,8 @@ def flash_cases(torch, seed: int, prompt_len: int) -> list[dict]:
             # on the plain causal shape.
             library=(lambda q=q, k=k, v=v: sdpa(q, k, v, is_causal=True, enable_gqa=True))
             if window == 0 and cap == 0.0 else None,
-            rate=FLOPS_BF16 if bf16 else FLOPS_F32, on_path=label == "serving prefill",
+            rate=FLOPS_BF16 if bf16 else FLOPS_F32,
+            on_path=label != "ragged, windowed, soft-capped",
             flops=4.0 * b * hq * dh * attention_pairs(s, window),
             nbytes=float(size * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)),
         ))
@@ -1886,7 +1900,10 @@ def check_serving_f32(torch, seed: int) -> dict:
     """Qwen3-0.6B in f32 (batch 1, a ``CHECK_PROMPT``-token prompt): each of
     ``CHECK_STEPS`` decode steps against the full forward at its position
     (through the kernel, ragged lengths), and the kernel's prefill against
-    the plain ``xla`` prefill on the same weights."""
+    the plain ``xla`` prefill on the same weights; the f32 kernel's launches
+    and second passes in that run, and one more prefill under
+    ``torch.profiler``."""
+    from repro_torch.kernels import ops
     from repro_torch.models import LM
 
     cfg = serving_config(attn_impl="pallas", dtype="float32")
@@ -1896,6 +1913,8 @@ def check_serving_f32(torch, seed: int) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(seed + 8)
     toks = torch.randint(0, cfg.vocab_size, (1, CHECK_PROMPT + CHECK_STEPS), device=DEV,
                          generator=gen)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
     with torch.no_grad():
         logits, cache = lm.prefill(toks[:, :CHECK_PROMPT], CHECK_PROMPT + CHECK_STEPS)
         x, _ = plain.hidden(toks[:, :CHECK_PROMPT])
@@ -1912,8 +1931,31 @@ def check_serving_f32(torch, seed: int) -> dict:
                   f"f32 decode at {i}: max |logit diff| vs the full forward {decode_err[-1]} "
                   f">= {LOGIT_ATOL}")
         logit_scale = float(logits.abs().max())
+    launches = ops.launch_counts()
+    passes = ops.FLASH_ATTENTION_COMBINE.launches
+    # One launch a layer in the prefill and in each full forward; a second
+    # pass wherever the split policy cuts a q tile's keys at that length.
+    lengths = range(CHECK_PROMPT, CHECK_PROMPT + CHECK_STEPS + 1)
+    split = sum(any(hi - lo > ops.flash_chunk(cfg.n_heads, s, cfg.resolved_head_dim, 0,
+                                              logits.device)
+                    for lo, hi in ops.flash_key_tiles(s, 0)) for s in lengths)
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want["flash_attention"] = cfg.n_layers * len(lengths)
+    check(launches == want and passes == cfg.n_layers * split,
+          f"f32 serving check launches {launches}, {passes} second passes; want {want}, "
+          f"{cfg.n_layers * split}")
+    del plain, cache
+    with torch.no_grad():
+        prof = device_profile(torch, lambda: lm.prefill(toks[:, :CHECK_PROMPT], CHECK_PROMPT))
+    flash_ms = sum(v for k, v in prof["device_ms"].items() if "flash_attention" in k)
     return dict(prompt=CHECK_PROMPT, steps=CHECK_STEPS, prefill_kernel_vs_plain=prefill_err,
-                decode_vs_forward=decode_err, logit_scale=logit_scale)
+                decode_vs_forward=decode_err, logit_scale=logit_scale,
+                flash_launches=launches["flash_attention"], flash_second_passes=passes,
+                prefill_wall_ms=prof["wall_ms"], prefill_device_busy_ms=prof["device_busy_ms"],
+                prefill_flash_ms=flash_ms,
+                prefill_flash_share=flash_ms / prof["device_busy_ms"],
+                prefill_flash_kernels={k: v for k, v in prof["device_count"].items()
+                                       if "flash_attention" in k})
 
 
 def main() -> int:
@@ -1958,10 +2000,19 @@ def main() -> int:
           f"{ops.FLASH_ATTENTION_BF16.source} has no wgmma or no TMA load in its SASS: {sass}")
     f32_sources = [k.source for ks in ops.KERNELS.values() for k in ks
                    if k is not ops.FLASH_ATTENTION_BF16]
-    sass_f32 = {src: sass_counts(_build.library_path(src), SASS_F32) for src in f32_sources}
+    sass_f32 = {src: sass_counts(_build.library_path(src), SASS_F32 + ("UTMALDG",))
+                for src in f32_sources}
     for src, counts in sass_f32.items():
         check(counts["HMMA"] == 0 and counts["HGMMA"] == 0,
               f"{src} holds tensor-core instructions in its SASS: {counts}")
+    # The f32 flash kernel's K/V stages are fed by TMA, from registers that
+    # hold its tiles without spilling.
+    flash_f32 = ops.FLASH_ATTENTION.source
+    check(sass_f32[flash_f32]["UTMALDG"] > 0, f"{flash_f32} has no TMA load in its SASS")
+    rows = [r for r in ptxas_summary(ptxas) if r["source"] == flash_f32]
+    check(rows, f"no ptxas report for {flash_f32}: remove {_build.BUILD_DIR} and run again")
+    spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+    check(not spilled, f"{flash_f32} spills registers: {spilled}")
 
     batches, ata = make_stream(torch, args.seed, args.steps)
     torch.cuda.synchronize()
@@ -2085,7 +2136,8 @@ def main() -> int:
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{main['source']}",
             replaces=PALLAS.get(name) or NO_PALLAS[name],
             launches=(run["launches"][name] + prun["launches"][name] + pk["launches"][name]
-                      + hq["launches"][name] + srun["launches"][name]),
+                      + hq["launches"][name] + srun["launches"][name]
+                      + (f32_checks["flash_launches"] if name == "flash_attention" else 0)),
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], shape=main["shape"], shapes=mine,
@@ -2107,7 +2159,8 @@ def main() -> int:
     for src, n in sass_f32.items():
         print(f"SASS of {src}: {n['FFMA']} FFMA, {n['LDS']} LDS ({n['LDS.128']} LDS.128), "
               f"{n['FFMA'] / max(n['LDS'], 1):.2f} FFMA per shared load, {n['LDGSTS']} LDGSTS "
-              f"(cp.async), {n['HMMA']} HMMA, {n['HGMMA']} HGMMA")
+              f"(cp.async), {n['UTMALDG']} UTMALDG (TMA loads), {n['HMMA']} HMMA, "
+              f"{n['HGMMA']} HGMMA")
     for c in cases:
         lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         print(f"{c['kernel']:<10} {c['shape']:<52} ms {c['ms']:.4f}  plain {c['plain_ms']:.4f}  "
@@ -2204,7 +2257,11 @@ def main() -> int:
           f"phase {serve_phase_s:.1f} s")
     print(f"serving f32 check: prefill kernel vs plain {f32_checks['prefill_kernel_vs_plain']:.3e}, "
           f"decode vs full forward max {max(f32_checks['decode_vs_forward']):.3e} "
-          f"(limit {LOGIT_ATOL})")
+          f"(limit {LOGIT_ATOL}); f32 flash_attention {f32_checks['flash_launches']} launches, "
+          f"{f32_checks['flash_second_passes']} second passes; one f32 prefill of "
+          f"{CHECK_PROMPT} tokens: wall {f32_checks['prefill_wall_ms']:.2f} ms, device busy "
+          f"{f32_checks['prefill_device_busy_ms']:.2f} ms, flash_attention "
+          f"{f32_checks['prefill_flash_ms']:.3f} ms ({f32_checks['prefill_flash_share']:.1%})")
     print("summary: " + json.dumps(summary))
     print(card)
     print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"} for e in kernels]}))

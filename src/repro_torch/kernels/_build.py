@@ -51,6 +51,11 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{key.hexdigest()[:16]}.so"
 
 
+def _report_path(source: str) -> Path:
+    """Where the ptxas report of ``source``'s library is kept."""
+    return library_path(source).with_suffix(".ptxas")
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -65,13 +70,16 @@ def _nvcc() -> str:
 def build(sources) -> dict[str, str]:
     """Compile every source in ``sources`` that is not built yet, all at once.
 
-    Returns ``{source: ptxas report}`` for the sources compiled by this call
-    (empty for the ones already built).  Raises with the compiler's output
-    if any of them fails.
+    Returns ``{source: ptxas report}`` for every source in ``sources``: the
+    compiler's output of this call's build, or the one saved beside the
+    library when it was built.  Raises with the compiler's output if any of
+    them fails.
     """
     pending = [s for s in sources if not library_path(s).exists()]
+    reports = {s: _report_path(s).read_text() for s in sources
+               if s not in pending and _report_path(s).exists()}
     if not pending:
-        return {}
+        return reports
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -81,13 +89,14 @@ def build(sources) -> dict[str, str]:
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((source, proc, tmp, out))
-    reports, failures = {}, []
+    failures = []
     for source, proc, tmp, out in jobs:
         text, _ = proc.communicate()
         if proc.returncode != 0:
             failures.append(f"{source} (exit {proc.returncode}):\n{text}")
             tmp.unlink(missing_ok=True)
             continue
+        _report_path(source).write_text(text)
         os.replace(tmp, out)
         reports[source] = text
     if failures:

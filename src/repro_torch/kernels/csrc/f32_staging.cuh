@@ -1,5 +1,6 @@
 // Staging of f32 operands into shared memory, shared by the IEEE-f32 FFMA
-// kernels (quadform.cu, fd_gram.cu, fd_project.cu, levscore.cu):
+// kernels (quadform.cu, fd_gram.cu, fd_project.cu, levscore.cu,
+// flash_attention.cu):
 // shared-memory addresses, the 128-byte swizzle, mbarriers, TMA box loads of
 // 3-D (tenant-stacked) tensors and the tensor maps they read, and 4-byte
 // cp.async copies for the operands TMA cannot take (a row stride or base
@@ -46,6 +47,11 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+// One arrival on `bar` (a consumer releasing a stage).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 // Wait until the phase of `bar` with parity `parity` has completed.

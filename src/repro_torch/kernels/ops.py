@@ -11,7 +11,9 @@
   over blocks, a second pass that adds their partial scores in order).
 * ``flash_attention`` — causal self-attention with GQA, a sliding window and
   a logit soft-cap: one launch of ``csrc/flash_attention_wgmma.cu`` (bf16,
-  on the tensor cores) or of ``csrc/flash_attention.cu`` (f32).
+  on the tensor cores) or of ``csrc/flash_attention.cu`` (f32; where it
+  splits the long key ranges into pieces, ``flash_split``, a second pass
+  merges them in order).
 * ``mg_scan`` — weighted Misra--Gries over an item stream for S summaries at
   once, one launch of ``csrc/mg_scan.cu`` (the heavy-hitter kind's
   ``mg_update_stream``; no Pallas kernel: the reference's ``lax.scan``):
@@ -36,6 +38,8 @@ zero.
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 
 import torch
 
@@ -74,13 +78,32 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 QUADFORM = CudaKernel("quadform.cu", "quadform_launch", [_P, _P, _P, _I, _I, _I, _I])
 QUADFORM_PACKED = CudaKernel("quadform.cu", "quadform_launch", [_P, _P, _P, _I, _I, _I, _I])
 LEVSCORE = CudaKernel("levscore.cu", "levscore_launch", [_P, _P, _P, _P, _L, _I, _I])
-_FLASH_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F]
-FLASH_ATTENTION = CudaKernel("flash_attention.cu", "flash_attention_launch", _FLASH_ARGS)
+# The f32 flash source: its kernel (q, k, v, o, scratch, scratch floats, b,
+# hq, hkv, s, dh, scale, window, softcap, chunk), the second pass that merges
+# a split launch's pieces, and its answer to how many floats of scratch a
+# launch needs (0 where no q tile is split).
+FLASH_ATTENTION = CudaKernel("flash_attention.cu", "flash_attention_launch",
+                             [_P] * 5 + [_L, _I, _I, _I, _I, _I, _F, _I, _F, _I])
+FLASH_ATTENTION_COMBINE = CudaKernel("flash_attention.cu", "flash_attention_combine_launch",
+                                     [_P, _P] + [_I] * 6)
+FLASH_SCRATCH = ("flash_attention_scratch_floats", [_I] * 6)
+# ... and to how many of its blocks an SM holds at head dim dh.
+FLASH_BLOCKS_PER_SM = ("flash_attention_blocks_per_sm", [_I])
 FLASH_ATTENTION_BF16 = CudaKernel("flash_attention_wgmma.cu", "flash_attention_bf16_launch",
-                                  _FLASH_ARGS)
-# Head dims both flash sources are built for, and the source of each dtype.
+                                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F])
+# Head dims both flash sources are built for.
 FLASH_HEAD_DIMS = (32, 64, 128)
-_FLASH_BY_DTYPE = {torch.float32: FLASH_ATTENTION, torch.bfloat16: FLASH_ATTENTION_BF16}
+# csrc/flash_attention.cu's work item: a q tile of FLASH_BQ rows, whose
+# visible key tiles of FLASH_BKV keys are walked in pieces of at most
+# ``chunk`` tiles (``flash_split``).
+FLASH_BQ, FLASH_BKV = 64, 64
+# flash_split's model, in times of one key tile on a busy SM: what an item
+# costs besides its tiles (q-tile load, pipeline fill, store), what the
+# second pass costs, and the share of an SM's rate one block alone gets; and
+# the tiles a block slot must average before a split cannot pay.
+_ITEM_COST, _COMBINE_COST, _ALONE_RATE, _NO_SPLIT_TILES = 0.3, 0.5, 0.85, 16
+# Blocks of the f32 flash kernel an SM holds, by (device, dh).
+_FLASH_PER_SM: dict = {}
 # csrc/levscore.cu's answer to how many floats of scratch a launch needs for
 # its partial scores (0 where it does not split the contraction).
 LEVSCORE_SCRATCH = ("levscore_scratch_floats", [_P, _P, _I, _I])
@@ -111,15 +134,16 @@ KERNELS = {"fd_gram": (FD_GRAM,), "fd_gram_batched": (FD_GRAM_BATCHED,),
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each kernel on the card since the last reset."""
+    """Launches of each kernel on the card since the last reset (the f32
+    flash kernel's second passes count apart, in
+    ``FLASH_ATTENTION_COMBINE.launches``)."""
     return {name: sum(k.launches for k in ks) for name, ks in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for ks in KERNELS.values():
-        for k in ks:
-            k.launches = 0
+    """Set every kernel's launch count to 0, second passes included."""
+    for k in (*(k for ks in KERNELS.values() for k in ks), FLASH_ATTENTION_COMBINE):
+        k.launches = 0
 
 
 def quadform_packed(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -203,7 +227,7 @@ def flash_attention(
                          f"got {tuple(k.shape)}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"GQA needs hq % hkv == 0, got {hq}, {hkv}")
-    if q.dtype not in _FLASH_BY_DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     devices = {q.device, k.device, v.device}
@@ -219,13 +243,121 @@ def flash_attention(
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError("flash_attention has no backward (nor has the reference's)")
     q, k, v = (_aligned(t) for t in (q, k, v))
+    scale = dh**-0.5 if scale is None else scale
+    if q.dtype == torch.float32:
+        return flash_attention_f32(q, k, v, window, scale, logit_softcap,
+                                   flash_chunk(b * hq, s, dh, window, q.device))
     out = torch.empty_like(q)
     if out.numel():
-        _FLASH_BY_DTYPE[q.dtype].launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                        out.data_ptr(), b, hq, hkv, s, dh,
-                                        dh**-0.5 if scale is None else scale, window,
-                                        logit_softcap)
+        FLASH_ATTENTION_BF16.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    out.data_ptr(), b, hq, hkv, s, dh, scale, window,
+                                    logit_softcap)
     return out
+
+
+def flash_attention_f32(q, k, v, window: int, scale: float, logit_softcap: float,
+                        chunk: int) -> torch.Tensor:
+    """``csrc/flash_attention.cu`` on contiguous, 16-byte aligned f32 CUDA
+    tensors, with each q tile's key range walked in pieces of at most
+    ``chunk`` key tiles (``flash_split`` picks it); a split launch is
+    followed by the second pass that merges the pieces."""
+    b, hq, s, dh = q.shape
+    out = torch.empty_like(q)
+    if not out.numel():
+        return out
+    args = (b, hq, s, dh, window)
+    floats = FLASH_ATTENTION.query(q.device, *FLASH_SCRATCH, *args, chunk)
+    part = torch.empty(floats, dtype=torch.float32, device=q.device)
+    FLASH_ATTENTION.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                           part.data_ptr(), floats, b, hq, k.shape[1], s, dh, scale, window,
+                           logit_softcap, chunk)
+    if floats:
+        FLASH_ATTENTION_COMBINE.launch(q.device, part.data_ptr(), out.data_ptr(), *args, chunk)
+    return out
+
+
+def flash_chunk(heads: int, s: int, dh: int, window: int, device: torch.device) -> int:
+    """The chunk ``flash_attention`` walks the f32 kernel's pieces in on
+    ``device`` (a CUDA card): ``flash_split`` for its SMs and the blocks of
+    the kernel an SM holds, asked of the library once a device and dh."""
+    key = (device, dh)
+    if key not in _FLASH_PER_SM:
+        _FLASH_PER_SM[key] = FLASH_ATTENTION.query(device, *FLASH_BLOCKS_PER_SM, dh)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return flash_split(heads, s, window, sms, _FLASH_PER_SM[key])
+
+
+def flash_key_tiles(s: int, window: int) -> list[tuple[int, int]]:
+    """For each q tile of ``csrc/flash_attention.cu`` (rows ``FLASH_BQ t`` ..
+    ``+ FLASH_BQ - 1``), the key tiles ``[lo, hi)`` some row of it can see
+    (causal, ``window`` > 0 as in ``flash_attention``)."""
+    tiles = []
+    for q0 in range(0, s, FLASH_BQ):
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        tiles.append((k_lo // FLASH_BKV, -(-min(s, q0 + FLASH_BQ) // FLASH_BKV)))
+    return tiles
+
+
+def flash_pieces(lo: int, hi: int, chunk: int) -> list[tuple[int, int]]:
+    """Key tiles ``[lo, hi)`` cut as the kernel cuts them: ceil(n / chunk)
+    pieces of even length (piece p from ``lo + p n // pieces``)."""
+    n = hi - lo
+    pieces = -(-n // chunk)
+    return [(lo + p * n // pieces, lo + (p + 1) * n // pieces) for p in range(pieces)]
+
+
+@functools.lru_cache(maxsize=256)
+def flash_split(heads: int, s: int, window: int, sms: int, per_sm: int) -> int:
+    """The most key tiles a piece of the f32 flash kernel walks, for
+    ``heads`` = b hq heads of s positions on ``sms`` SMs that hold ``per_sm``
+    blocks each.
+
+    Each candidate's pieces are dispatched as the card does, in grid order
+    (the last q tile's first, all heads of an item together) to the first
+    free block slot, and each SM shares its rate among the blocks it holds
+    (``_ALONE_RATE`` of it for a block alone); the shortest finish, with
+    ``_COMBINE_COST`` for a second pass, wins (ties to the longer pieces).
+    Where the block slots would average ``_NO_SPLIT_TILES`` tiles or more,
+    the grid balances itself and nothing is split."""
+    lengths = [hi - lo for lo, hi in flash_key_tiles(s, window)]
+    longest = max(lengths)
+    if heads * sum(lengths) >= _NO_SPLIT_TILES * sms * per_sm:
+        return longest
+    best, best_cost, seen = longest, None, set()
+    for chunk in range(longest, 0, -1):
+        counts = tuple(-(-n // chunk) for n in lengths)
+        if counts in seen or sum(counts) > 65535:  # the same pieces; the grid's limit
+            continue
+        seen.add(counts)
+        items = [b - a + _ITEM_COST for lo, hi in reversed(flash_key_tiles(s, window))
+                 for a, b in flash_pieces(lo, hi, chunk) for _ in range(heads)]
+        cost = _makespan(items, sms, per_sm) + (_COMBINE_COST if max(counts) > 1 else 0.0)
+        if best_cost is None or cost < best_cost - 1e-9:
+            best, best_cost = chunk, cost
+    return best
+
+
+def _makespan(items: list, sms: int, per_sm: int) -> float:
+    """When the last of ``items`` (tile-times of work, in dispatch order)
+    finishes on ``sms`` SMs of ``per_sm`` block slots, each SM sharing its
+    rate among its blocks."""
+    active = [[] for _ in range(sms)]
+    queue = iter(items)
+    for _ in range(per_sm):
+        for a in active:
+            a.extend(itertools.islice(queue, 1))
+    now = 0.0
+    while True:
+        busy = [a for a in active if a]
+        if not busy:
+            return now
+        rate = [(_ALONE_RATE if len(a) == 1 else 1.0) / len(a) for a in busy]
+        step = min(min(a) / r for a, r in zip(busy, rate))
+        now += step
+        for a, r in zip(busy, rate):
+            left = [w - step * r for w in a]
+            a[:] = [w for w in left if w > 1e-9]
+            a.extend(itertools.islice(queue, len(left) - len(a)))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

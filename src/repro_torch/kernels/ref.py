@@ -18,6 +18,8 @@ import torch
 __all__ = [
     "eigh_descending",
     "ref_attention",
+    "ref_attention_merge",
+    "ref_attention_partial",
     "ref_fd_gram",
     "ref_fd_gram_batched",
     "ref_fd_project",
@@ -194,6 +196,69 @@ def ref_attention(
     probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)  # rows that see no key
     return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
+
+
+# The f32 flash kernel's row state before any key: its running max (log2 units).
+FLASH_NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+
+
+def ref_attention_partial(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rows: tuple[int, int],
+    keys: tuple[int, int],
+    *,
+    window: int = 0,
+    scale: float | None = None,
+    logit_softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What one piece of ``csrc/flash_attention.cu``'s split leaves for query
+    rows ``rows`` = [r0, r1) over keys ``keys`` = [k0, k1) of causal
+    self-attention (q, k, v as in ``ref_attention`` with sq = skv), in f32:
+    the rows' largest visible logit times log2(e), ``m`` (b, hq, r1 - r0)
+    (``FLASH_NEG_INF`` where a row sees none of these keys), the sum ``l`` of
+    the weights 2^(x log2(e) - m) over them, and ``o`` = their weighted sum
+    of v, unnormalised (b, hq, r1 - r0, dh).  Not on the card's path: the
+    CPU tests hold the split's arithmetic with it."""
+    hq, dh = q.shape[1], q.shape[3]
+    group = hq // k.shape[1]
+    scale = dh**-0.5 if scale is None else scale
+    (r0, r1), (k0, k1) = rows, keys
+    qf = q[:, :, r0:r1].float() * scale
+    kf = k[:, :, k0:k1].float().repeat_interleave(group, dim=1)
+    vf = v[:, :, k0:k1].float().repeat_interleave(group, dim=1)
+    x = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    if logit_softcap > 0.0:
+        x = logit_softcap * torch.tanh(x / logit_softcap)
+    x = x * LOG2E
+    qpos = torch.arange(r0, r1, device=q.device)[:, None]
+    kpos = torch.arange(k0, k1, device=q.device)[None, :]
+    seen = kpos <= qpos
+    if window > 0:
+        seen &= kpos > qpos - window
+    x = x.masked_fill(~seen, FLASH_NEG_INF)
+    m = x.amax(-1) if k1 > k0 else torch.full(x.shape[:-1], FLASH_NEG_INF, device=q.device)
+    p = torch.where(seen, torch.exp2(x - m[..., None]), 0.0)
+    return m, p.sum(-1), torch.einsum("bhqk,bhkd->bhqd", p, vf)
+
+
+def ref_attention_merge(parts) -> torch.Tensor:
+    """Merge pieces ``(m, l, o)`` of ``ref_attention_partial`` for the same
+    rows, in their order, as the f32 flash kernel's second pass does:
+    m = max m_c, w_c = 2^(m_c - m), o = sum w_c o_c / sum w_c l_c, where a
+    row with l = 0 (it saw no key) divides by 1."""
+    m = parts[0][0]
+    for mc, _, _ in parts[1:]:
+        m = torch.maximum(m, mc)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(parts[0][2])
+    for mc, lc, oc in parts:
+        w = torch.exp2(mc - m)
+        l = l + w * lc
+        o = o + w[..., None] * oc
+    return o / torch.where(l == 0.0, 1.0, l)[..., None]
 
 
 def _mg_step(keys, counts, weight, shrink, key, w):

@@ -207,7 +207,15 @@ def test_cuda_levscore_matches_plain(n, d, misaligned):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,hq,hkv,s,dh,window,softcap,dtype", [
     (1, 8, 2, 1000, 64, 256, 30.0, torch.float32),  # ragged, windowed, soft-capped
-    (2, 4, 4, 200, 32, 0, 0.0, torch.float32),
+    (2, 4, 4, 200, 32, 0, 0.0, torch.float32),  # dh = 32
+    (1, 16, 8, 520, 128, 0, 0.0, torch.float32),  # the f32 serving check's shape, split
+    (1, 4, 2, 1, 128, 0, 0.0, torch.float32),  # one row
+    (1, 4, 2, 40, 64, 0, 0.0, torch.float32),  # less than one 64-row q tile
+    (1, 4, 2, 300, 64, 1, 0.0, torch.float32),  # window 1: each row sees itself
+    (1, 4, 2, 300, 64, 20, 30.0, torch.float32),  # a window narrower than a key tile
+    (1, 4, 2, 300, 32, 400, 0.0, torch.float32),  # a window longer than s
+    (2, 4, 4, 777, 64, 0, 0.0, torch.float32),  # split, s no multiple of a piece
+    (1, 16, 2, 600, 128, 0, 0.0, torch.float32),  # a GQA group of 8
     (1, 16, 8, 700, 128, 0, 0.0, torch.bfloat16),  # Qwen3-0.6B's heads, ragged s
     (1, 8, 2, 1000, 64, 256, 30.0, torch.bfloat16),  # the wgmma kernel's masks and cap
     (2, 4, 4, 200, 32, 0, 0.0, torch.bfloat16),  # dh = 32: the 64-byte swizzle
@@ -221,7 +229,8 @@ def test_cuda_flash_attention_matches_plain(b, hq, hkv, s, dh, window, softcap, 
     inputs: f32 within 1e-5 of the largest output; bf16 against the plain
     version in f32 of the same bf16 inputs, each element within one bf16
     rounding of itself (2^-8 of its magnitude) plus 1e-5 of the largest
-    output; two runs bit-equal; one launch per call; a head dim the kernel
+    output; two runs bit-equal; one launch per call (and, where the f32
+    kernel splits a q tile's keys, one second pass); a head dim the kernel
     is not built for raises.  Needs a CUDA card
     and nvcc: ``pytest -m cuda`` there."""
     if not torch.cuda.is_available():
@@ -231,9 +240,14 @@ def test_cuda_flash_attention_matches_plain(b, hq, hkv, s, dh, window, softcap, 
                for h in (hq, hkv, hkv))
     kw = dict(window=window, logit_softcap=softcap)
     before = ops.launch_counts()["flash_attention"]
+    passes = ops.FLASH_ATTENTION_COMBINE.launches
     got, again = ops.flash_attention(q, k, v, **kw), ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] - before == 2
+    chunk = ops.flash_chunk(b * hq, s, dh, window, q.device)
+    split = dtype == torch.float32 and any(hi - lo > chunk
+                                           for lo, hi in ops.flash_key_tiles(s, window))
+    assert ops.FLASH_ATTENTION_COMBINE.launches - passes == 2 * split
     assert got.dtype == dtype and torch.equal(got, again)
     want = ref.ref_attention(q.float(), k.float(), v.float(), **kw)
     if dtype == torch.float32:
@@ -242,6 +256,26 @@ def test_cuda_flash_attention_matches_plain(b, hq, hkv, s, dh, window, softcap, 
         _close(got.float(), want, rtol=2.0**-8, atol=1e-5 * float(want.abs().max()))
     with pytest.raises(ValueError, match="head dims"):
         ops.flash_attention(q[..., :16], k[..., :16], v[..., :16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 2, 3, 64])
+def test_cuda_flash_attention_f32_any_split_matches_plain(chunk):
+    """The f32 kernel with its key ranges cut into pieces of at most ``chunk``
+    key tiles, whatever ``flash_split`` would choose: 1 (every tile its own
+    piece, rows that see no key in most pieces), 2 and 3 (uneven pieces),
+    and none (64): each within 1e-5 of the largest output of the plain
+    version, two runs bit-equal.  Needs a CUDA card and nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(chunk)
+    q, k, v = (torch.randn(1, h, 1000, 64, device="cuda", generator=gen) for h in (8, 2, 2))
+    for window, cap in ((0, 0.0), (256, 30.0)):
+        got, again = (ops.flash_attention_f32(q, k, v, window, 0.125, cap, chunk)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _close(got, ref.ref_attention(q, k, v, window=window, scale=0.125, logit_softcap=cap))
 
 
 def _mg_inputs(s, k, b, gen):
