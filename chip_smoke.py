@@ -130,11 +130,38 @@ the CUDA toolkit:
    timed beside a chain bound (their dependent steps over live tuples); the
    plain versions on the host clock, the fold's once.  Each tenant's
    items/s are reported over the timed waves and at the median wave, beside
-   the garbage collector's pauses in those waves.
+   the garbage collector's pauses in those waves;
+13. after 12, path 6: shard P3 through ``DistributedMatrixTracker`` (m = 8,
+   d = 1024, eps = 0.02, so s = 9,781) on the 64 super-steps of 3, each
+   timed; the reference's check ``||A^T A - B^T B||_2 < 2 eps ||A||_F^2``
+   against the f64 truth, fewer messages than rows, 256 served directions
+   within the spec's ``1.5 eps ||A||_F^2``, and two steps run twice from one
+   state bit-equal; one ``query_batch`` of 1,024 directions must launch
+   ``quadform`` at L = 9,782, which is held against its plain version there
+   and on a tall ragged stack on offset views, beside the library call.
+   Then one ``StreamingPipeline`` of windowed tenants (shard flavour, 8
+   software sites, ``OnWindowClose`` each): ``P2win`` and ``P1win`` leverage
+   on 2,048 rows of 3's stream a batch, ``P2decay`` (half-life 8) on the
+   same rows, ``P1win`` HH and quantile on path 5's streams; 32 batches at
+   ts = 0..31 (window 16 in 8 buckets, lateness 2), two arriving out of
+   order within the lateness and one behind the watermark, which must raise
+   ``LateRowError`` and count in ``late_rows``.  Answers against the truth
+   over the rows the states cover (f64, on the host or the card): matrix
+   directions within ``eps ||A_win||_F^2`` (decayed: ``1.5 eps`` of the
+   decayed mass), HH estimates within ``eps W_win``, leverage subspace
+   answers within ``1.5 eps ||A_win||_F^2`` and scores against
+   ``table_scores``; the quantile probes within the band the served summary
+   certifies (the fold of many states widens it past the spec's envelope,
+   in the reference too: ROADMAP.md §3); windows closed = bucket boundaries
+   crossed = publishes; a mid-stream save and load on the card,
+   bit-identical, and one more batch into both.  ``fd_gram``,
+   ``fd_project``, ``levscore``, ``mg_scan`` and ``quant_merge_pack`` are held
+   against their plain versions at the path's shapes (the last two bit for
+   bit on recorded site inserts), and each tenant's serve fold is timed.
 
 Launch counts are set to 0 just before each path (the P2 path, the
-pipeline, the packed pipeline, path 5, the serving run, the f32 serving
-check) and read just after; the serial pipeline of 11 runs before its
+pipeline, the packed pipeline, path 5, path 6, the serving run, the f32
+serving check) and read just after; the serial pipeline of 11 runs before its
 window.  Comparisons of a kernel with its plain version are made outside
 those windows.  It prints the card's name and
 power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
@@ -243,6 +270,24 @@ NO_PALLAS = {
     "quant_fold": "none (src/repro/core/distributed.py:521 the coordinator's loop of "
                   "quant_merge over m sites)",
 }
+# Path 6, after path 5: shard P3 through DistributedMatrixTracker on path 1's
+# stream (m = 8, d = 1024, eps = 0.02: s = 9,781, so P3's served matrix is
+# (9,782, 1,024)), its served answers held to the spec's err_factor on the
+# first P3_CHECK_DIRS directions; then one pipeline of windowed tenants,
+# shard flavour, each publishing on OnWindowClose: P2win and P1win leverage
+# on WIN_ROWS rows of path 1's stream a batch, P2decay (half-life
+# WIN_HALF_LIFE) on the same rows, P1win HH and quantile on path 5's
+# streams, each cut into WIN_BATCHES batches at ts = 0, 1, ... (window
+# WIN_WINDOW in WIN_BUCKETS buckets, lateness WIN_LATENESS).  The batches in
+# each WIN_SWAPS pair arrive swapped (within the lateness); batch WIN_LATE
+# arrives after WIN_LATE_AFTER, behind the watermark, and is shed.  The
+# pipeline is saved and loaded after WIN_SAVE_AFTER arrivals.
+P3_CHECK_DIRS = N_CHECK_DIRS
+WIN_BATCHES, WIN_ROWS = 32, 2048
+WIN_WINDOW, WIN_BUCKETS, WIN_LATENESS, WIN_HALF_LIFE = 16.0, 8, 2.0, 8.0
+WIN_SWAPS, WIN_LATE, WIN_LATE_AFTER, WIN_SAVE_AFTER = ((10, 11), (20, 21)), 5, 23, 16
+P6_KERNELS = ("fd_gram", "fd_project", "quadform", "levscore", "mg_scan", "quant_merge_pack")
+P3_PROFILED_STEPS = 4
 # A sequential kernel's chain bound: its dependent steps at about 30 cycles
 # each (a shared-memory round trip, or four dependent f32 additions, a
 # compare and a select) at the H100's 1.98 GHz boost clock.  A reckoning,
@@ -1648,6 +1693,62 @@ def check_hq(torch, hq) -> dict:
                       for n in hq["pipe"].tenants()})
 
 
+def _flat(torch, out):
+    """A kernel's output tuple as one f64 vector, for bit-for-bit comparison."""
+    return torch.cat([t.double().flatten() for t in out])
+
+
+def _cpu_args(args):
+    """CPU copies of a recorded call's arguments (tuples of tensors kept as tuples)."""
+    return tuple(_cpu_args(a) if isinstance(a, tuple) else a.cpu() if hasattr(a, "cpu") else a
+                 for a in args)
+
+
+def mg_scan_case(torch, args, label: str) -> dict:
+    """``mg_scan`` on a recorded call's inputs, bit for bit against the plain
+    step-by-step loop on CPU copies (host clock, 2 calls); its chain bound is
+    the items of a row."""
+    from repro_torch.kernels import ops, ref
+
+    s, k = args[0].shape
+    b = args[4].shape[1]
+    route = 1 if k <= ops.MG_REGISTER_SLOTS else 2
+    return dict(
+        kernel="mg_scan", shape=f"{label}: (S={s}, k={k}, b={b}), route {route}",
+        pallas=NO_PALLAS["mg_scan"], run=lambda a=args: _flat(torch, ops.mg_scan(*a)),
+        time=lambda a=args: ops.mg_scan(*a),
+        plain=lambda a=_cpu_args(args): _flat(torch, ref.ref_mg_scan(*a)), plain_on_cpu=True,
+        plain_reps=2, library=None, exact=True, chain_steps=b, on_path=True,
+        variant=f"route {route}: slots in {'registers' if route == 1 else 'shared memory'}",
+        # Each item compares every slot, at least: S b k operations.
+        flops=float(s * b * k), nbytes=8.0 * (2 * s * k + 2 * s + s * b),
+    )
+
+
+def quant_merge_case(torch, args, label: str) -> dict:
+    """``quant_merge_pack`` on a recorded call's inputs, bit for bit against
+    the plain loop on CPU copies (host clock, 2 calls); its chain bound is
+    the live tuples of the longest row."""
+    from repro_torch.kernels import ops, ref
+
+    a, bb, two_eps, cap = args
+    (t, la), lb = a[0].shape, bb[0].shape[1]
+    live = torch.isfinite(a[0]).sum(-1) + torch.isfinite(bb[0]).sum(-1)
+    return dict(
+        kernel="quant_merge_pack",
+        shape=f"{label}: (T={t}, la={la}, lb={lb}, cap={cap}; {int(live.max())} live tuples "
+              "walked)",
+        pallas=NO_PALLAS["quant_merge_pack"],
+        run=lambda a=args: _flat(torch, ops.quant_merge_pack(*a)),
+        time=lambda a=args: ops.quant_merge_pack(*a),
+        plain=lambda a=_cpu_args(args): _flat(torch, ref.ref_quant_merge_pack(*a)),
+        plain_on_cpu=True, plain_reps=2, library=None, exact=True,
+        chain_steps=int(live.max()), on_path=True,
+        # About eight f32 additions and comparisons a walked tuple.
+        flops=8.0 * float(live.sum()), nbytes=4.0 * (4 * t * (la + lb + cap) + 3 * t),
+    )
+
+
 def hq_cases(torch, hq) -> list[dict]:
     """``mg_scan``, ``quant_merge_pack`` and ``quant_fold`` at path 5's shapes,
     on the inputs the first wave gave them: the site scan (50 summaries x one
@@ -1662,48 +1763,16 @@ def hq_cases(torch, hq) -> list[dict]:
     merge, counted by stepping ``quant_merge_pack``)."""
     from repro_torch.kernels import ops, ref
 
-    def flat(out):
-        return torch.cat([t.double().flatten() for t in out])
-
-    def cpu(args):
-        return tuple(cpu(a) if isinstance(a, tuple) else a.cpu() if hasattr(a, "cpu") else a
-                     for a in args)
-
     def live(x):
         return torch.isfinite(x).sum(-1)
 
     cases = []
     args = hq["recorded"]["mg_scan"]
     check(args is not None, "path 5's first wave recorded no mg_scan call")
-    s, k = args[0].shape
-    b = args[4].shape[1]
-    route = 1 if k <= ops.MG_REGISTER_SLOTS else 2
-    cases.append(dict(
-        kernel="mg_scan", shape=f"site scan: (S={s}, k={k}, b={b}), route {route}",
-        pallas=NO_PALLAS["mg_scan"], run=lambda a=args: flat(ops.mg_scan(*a)),
-        time=lambda a=args: ops.mg_scan(*a),
-        plain=lambda a=cpu(args): flat(ref.ref_mg_scan(*a)), plain_on_cpu=True, plain_reps=2,
-        library=None, exact=True, chain_steps=b, on_path=True,
-        variant=f"route {route}: slots in {'registers' if route == 1 else 'shared memory'}",
-        # Each item compares every slot, at least: S b k operations.
-        flops=float(s * b * k), nbytes=8.0 * (2 * s * k + 2 * s + s * b),
-    ))
+    cases.append(mg_scan_case(torch, args, "site scan"))
     args = hq["recorded"]["quant_merge_pack"]
     check(args is not None, "path 5's first wave recorded no quant_merge_pack call (site inserts)")
-    a, bb, two_eps, cap = args
-    (t, la), lb = a[0].shape, bb[0].shape[1]
-    steps = int((live(a[0]) + live(bb[0])).max())
-    cases.append(dict(
-        kernel="quant_merge_pack",
-        shape=f"site inserts: (T={t}, la={la}, lb={lb}, cap={cap}; {steps} live tuples walked)",
-        pallas=NO_PALLAS["quant_merge_pack"], run=lambda a=args: flat(ops.quant_merge_pack(*a)),
-        time=lambda a=args: ops.quant_merge_pack(*a),
-        plain=lambda a=cpu(args): flat(ref.ref_quant_merge_pack(*a)), plain_on_cpu=True,
-        plain_reps=2, library=None, exact=True, chain_steps=steps, on_path=True,
-        # About eight f32 additions and comparisons a walked tuple.
-        flops=8.0 * float((live(a[0]) + live(bb[0])).sum()),
-        nbytes=4.0 * (4 * t * (la + lb + cap) + 3 * t),
-    ))
+    cases.append(quant_merge_case(torch, args, "site inserts"))
     args = hq["recorded"]["quant_fold"]
     check(args is not None, "path 5's first wave recorded no quant_fold call")
     a, bb, two_eps, cap = args
@@ -1716,18 +1785,561 @@ def hq_cases(torch, hq) -> list[dict]:
         steps += int(live(state[0])[0] + live(site[0])[0])
         state = ops.quant_merge_pack(state, site, two_eps, cap)
     torch.cuda.synchronize()
-    check(torch.equal(flat(state), flat(ops.quant_fold(*args))),
+    check(torch.equal(_flat(torch, state), _flat(torch, ops.quant_fold(*args))),
           "the fold differs from its merges taken one launch at a time")
     cases.append(dict(
         kernel="quant_fold",
         shape=f"coordinator fold: (m={m}, cap={cap}; {steps} live tuples walked of "
               f"{m * (cap + lb)})",
-        pallas=NO_PALLAS["quant_fold"], run=lambda a=args: flat(ops.quant_fold(*a)),
+        pallas=NO_PALLAS["quant_fold"], run=lambda a=args: _flat(torch, ops.quant_fold(*a)),
         time=lambda a=args: ops.quant_fold(*a),
-        plain=lambda a=cpu(args): flat(ref.ref_quant_fold(*a)), plain_on_cpu=True, plain_reps=1,
+        plain=lambda a=_cpu_args(args): _flat(torch, ref.ref_quant_fold(*a)), plain_on_cpu=True,
+        plain_reps=1,
         library=None, exact=True, chain_steps=steps, on_path=True,
         flops=8.0 * steps, nbytes=4.0 * (8 * cap + 2 + m * (4 * lb + 1)),
     ))
+    return cases
+
+
+def drive_p3(torch, batches) -> dict:
+    """Path 6's first half: shard P3 through ``DistributedMatrixTracker`` on
+    path 1's stream (every super-step timed on the synchronised host clock),
+    a publish and one ``query_batch`` of N_DIRS directions through the
+    ``QueryEngine``, which must launch ``quadform`` at L = s + 1.  Two
+    steps are then run twice from the same state, outside the tracker."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.tracker import DistributedMatrixTracker
+    from repro_torch.kernels import ops
+    from repro_torch.query import QueryEngine, SketchStore
+
+    tracker = DistributedMatrixTracker(M, D, eps=EPS, protocol="P3", device=DEV)
+    cfg = tracker.cfg
+    step_s = []
+    for rows in batches:
+        t0 = time.perf_counter()
+        tracker.update(rows)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    store = SketchStore()
+    t0 = time.perf_counter()
+    snap = tracker.publish(store, "p3")
+    publish_s = time.perf_counter() - t0
+    engine = QueryEngine(store, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(61)
+    x = unit_dirs(torch, gen, N_DIRS).cpu().numpy()
+    with _Recorder(ops, "quadform", lambda b, _: b.shape[0] == cfg.s + 1) as rec:
+        t0 = time.perf_counter()
+        served = engine.query_batch(x, tenant="p3", path="kernel").estimates
+        query_s = time.perf_counter() - t0
+    state = tracker.state
+    flat = lambda st: [st.rng, st.tau, st.buf_rows, st.buf_w, st.buf_rho, *st.comm]  # noqa: E731
+    runs = [dist.p3_step(cfg, dist.p3_step(cfg, state, batches[0]), batches[1])
+            for _ in range(2)]
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(flat(runs[0]), flat(runs[1])))
+    prof = profile_p3(torch, cfg, state, batches[2:2 + P3_PROFILED_STEPS])
+    return dict(tracker=tracker, cfg=cfg, step_s=step_s, snap=snap, publish_s=publish_s,
+                x=x, served=served, query_s=query_s, quadform_args=rec.args,
+                repeat_equal=repeat_equal, profile=prof)
+
+
+def profile_p3(torch, cfg, state, batches) -> dict:
+    """``torch.profiler`` over P3 super-steps from the tracker's final state
+    (not fed back to it): wall time, device busy share, and the torch ops
+    with the most host time and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import distributed as dist
+
+    dist.p3_step(cfg, state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = state
+        for rows in batches:
+            st = dist.p3_step(cfg, st, rows)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev, count, _ = raw_profile(prof)
+    busy_us = sum(dev.values())
+    host = sorted(((e.key, e.self_cpu_time_total) for e in prof.key_averages()),
+                  key=lambda kv: -kv[1])[:8]
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    return dict(steps=len(batches), wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                device_busy_share=busy_us / wall_us, device_launches=sum(count.values()),
+                top_device_ms={k: v / 1e3 for k, v in top},
+                top_host_self_ms={k: v / 1e3 for k, v in host})
+
+
+def check_p3(torch, p3, ata) -> dict:
+    """The reference's check (tests/test_distributed.py:38-44) against dense
+    f64 truth: ``||A^T A - B^T B||_2 < 2 eps ||A||_F^2`` and fewer messages
+    than rows; the served answers of P3_CHECK_DIRS unit directions within
+    the spec's ``err_factor * eps * ||A||_F^2``; two runs of two steps from
+    one state bit-equal."""
+    from repro_torch.runtime import get_spec
+
+    tracker = p3["tracker"]
+    frob = float(torch.diagonal(ata).sum())
+    b = torch.tensor(p3["snap"].matrix, device=DEV, dtype=torch.float64)
+    spectral = float(torch.linalg.eigvalsh(ata - b.T @ b).abs().max()) / frob
+    check(spectral < 2 * EPS, f"P3: ||A^T A - B^T B||_2 = {spectral:.3e} ||A||_F^2 >= 2 eps")
+    x = torch.tensor(p3["x"], device=DEV, dtype=torch.float64)
+    truth = ((x @ ata) * x).sum(1).cpu().numpy()
+    gap = (abs(p3["served"].astype("float64") - truth) / frob)
+    factor = get_spec("P3", "shard", "matrix").err_factor
+    check(float(gap[:P3_CHECK_DIRS].max()) <= factor * EPS,
+          f"P3: a served direction is {float(gap[:P3_CHECK_DIRS].max()):.3e} ||A||_F^2 off "
+          f"(limit {factor} eps)")
+    comm = tracker.comm_report()
+    n = tracker.rows_fed
+    check(comm.row_msgs > 0 and comm.total < n, f"P3 messages {comm.total} not below n = {n}")
+    check(p3["quadform_args"] is not None,
+          f"P3's query_batch did not launch quadform at L = {p3['cfg'].s + 1}")
+    check(p3["repeat_equal"], "P3: two runs of two steps from one state differ")
+    check(bool(torch.isfinite(b).all()) and b.shape == (p3["cfg"].s + 1, D),
+          f"P3's served matrix is {tuple(b.shape)} or not finite")
+    return dict(spectral_err=spectral, max_dir_gap=float(gap[:P3_CHECK_DIRS].max()),
+                max_dir_gap_all=float(gap.max()), limit=factor * EPS, comm=comm.as_dict(),
+                rows=n, tau=float(tracker.state.tau),
+                doublings=int(tracker.state.comm.broadcast_events),
+                frob_estimate=tracker.frob_estimate(), frob=frob)
+
+
+def win_arrivals() -> list[int]:
+    """Path 6's arrival order of the WIN_BATCHES batches (batch i at ts = i):
+    each pair in WIN_SWAPS arrives swapped, within the lateness, and batch
+    WIN_LATE arrives after batch WIN_LATE_AFTER, behind the watermark."""
+    order = list(range(WIN_BATCHES))
+    for a, b in WIN_SWAPS:
+        i, j = order.index(a), order.index(b)
+        order[i], order[j] = b, a
+    order.remove(WIN_LATE)
+    order.insert(order.index(WIN_LATE_AFTER) + 1, WIN_LATE)
+    return order
+
+
+def win_streams(torch, batches, seed: int) -> dict:
+    """Path 6's WIN_BATCHES batches for each tenant: WIN_ROWS rows of path 1's
+    stream a batch for the matrix and leverage tenants (on the card), and
+    path 5's HH and quantile streams cut at multiples of M (host pairs)."""
+    import numpy as np
+
+    stream = torch.cat(batches)[: WIN_BATCHES * WIN_ROWS]
+    check(stream.shape[0] == WIN_BATCHES * WIN_ROWS, "path 6 needs more rows of path 1's stream")
+    hq = hq_streams(seed)
+
+    def cut(pair, n):
+        bounds = [M * round(i * n / M / WIN_BATCHES) for i in range(WIN_BATCHES + 1)]
+        return [tuple(np.ascontiguousarray(a[bounds[i]:bounds[i + 1]]) for a in pair)
+                for i in range(WIN_BATCHES)]
+
+    rows = [stream[i * WIN_ROWS:(i + 1) * WIN_ROWS] for i in range(WIN_BATCHES)]
+    return {"mat-win": rows, "mat-decay": rows, "lev-win": rows,
+            "hh-win": cut(hq["hh"], HH_ITEMS), "q-win": cut(hq["q"], Q_ITEMS)}
+
+
+def win_pipeline():
+    """Path 6's pipeline: the windowed tenants, shard flavour (M software
+    sites), each with its own ``OnWindowClose``."""
+    from repro_torch.runtime import OnWindowClose, StreamingPipeline
+
+    pipe = StreamingPipeline(M, eps=EPS, max_batch=8 * N_DIRS, default_deadline_s=3600.0,
+                             device=DEV)
+    geometry = dict(window=WIN_WINDOW, buckets=WIN_BUCKETS, lateness=WIN_LATENESS)
+    for name, kind, protocol in (("mat-win", "matrix", "P2win"), ("lev-win", "leverage", "P1win"),
+                                 ("hh-win", "hh", "P1win"), ("q-win", "quantile", "P1win")):
+        pipe.add_windowed_tenant(name, kind=kind, d=D if kind in ("matrix", "leverage") else None,
+                                 protocol=protocol, engine="shard", policy=OnWindowClose(),
+                                 **geometry)
+    pipe.add_windowed_tenant("mat-decay", kind="matrix", d=D, protocol="P2decay", engine="shard",
+                             policy=OnWindowClose(), half_life=WIN_HALF_LIFE,
+                             lateness=WIN_LATENESS)
+    return pipe
+
+
+def win_live_answers(pipe, x) -> dict:
+    """Each windowed tenant's live answers, read from its protocol: the
+    matrix tenants' ``||B x||^2``, the HH estimates, the quantile table and
+    the leverage table."""
+    return {"mat-win": pipe.tracker("mat-win").query_batch(x),
+            "mat-decay": pipe.tracker("mat-decay").query_batch(x),
+            "lev-win": pipe.tracker("lev-win").sampled_rows(),
+            "hh-win": pipe.tracker("hh-win").estimates(),
+            "q-win": pipe.tracker("q-win").table()}
+
+
+def win_served(pipe, queries) -> dict:
+    """Every windowed tenant's published answers through ``query_batch``."""
+    eng = pipe.engine
+    return {"mat-win": eng.query_batch(queries["x"], tenant="mat-win").estimates,
+            "mat-decay": eng.query_batch(queries["x"], tenant="mat-decay").estimates,
+            "lev-subspace": eng.query_batch(queries["sub"], tenant="lev-win").estimates,
+            "lev-score": eng.query_batch(queries["score"], tenant="lev-win").estimates,
+            "hh-win": eng.query_batch(queries["ids"], tenant="hh-win").estimates,
+            "q-win": eng.query_batch(queries["q"], tenant="q-win").estimates}
+
+
+def drive_windows(torch, batches, seed: int) -> dict:
+    """Path 6's second half: ``win_pipeline`` takes the WIN_BATCHES batches
+    of ``win_streams`` in ``win_arrivals`` order (each tenant's ingest timed
+    on the synchronised host clock; the late batch must raise
+    ``LateRowError`` for every tenant).  After WIN_SAVE_AFTER arrivals the
+    pipeline is saved and loaded on the card (outside the timed ingest),
+    and the next arrival goes into both.  At the end every tenant is
+    published and queried through the engine.  The first site inserts
+    record ``mg_scan``'s and ``quant_merge_pack``'s inputs."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.leverage import score_query, subspace_query
+    from repro_torch.core.quantiles import quantile_query, rank_query
+    from repro_torch.core.windows import LateRowError
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import StreamingPipeline
+
+    streams = win_streams(torch, batches, seed)
+    names = list(streams)
+    pipe = win_pipeline()
+    order = win_arrivals()
+    ingest_s = dict.fromkeys(names, 0.0)
+    items = dict.fromkeys(names, 0)
+    late = dict.fromkeys(names, 0)
+    # Policy publishes (each a serve fold) happen inside ingest: their time
+    # a tenant is kept apart too.
+    publish_s = dict.fromkeys(names, 0.0)
+    publish = pipe._publish
+
+    def timed_publish(tenant, t):
+        t0 = time.perf_counter()
+        snap = publish(tenant, t)
+        torch.cuda.synchronize()
+        publish_s[tenant] += time.perf_counter() - t0
+        return snap
+
+    pipe._publish = timed_publish
+    gen = torch.Generator(device=DEV).manual_seed(seed + 62)
+    x_live = unit_dirs(torch, gen, N_CHECK_DIRS).cpu().numpy()
+    ckpt = {}
+
+    def feed(p, i, clock: bool) -> None:
+        for name in names:
+            batch = streams[name][i]
+            t0 = time.perf_counter()
+            try:
+                p.ingest(name, batch, ts=float(i))
+                shed = False
+            except LateRowError:
+                shed = True
+            torch.cuda.synchronize()
+            if clock:
+                ingest_s[name] += time.perf_counter() - t0
+                if shed:
+                    late[name] += 1
+                else:
+                    items[name] += len(batch[0]) if isinstance(batch, tuple) else batch.shape[0]
+
+    with _Recorder(ops, "mg_scan", lambda *a: a[0].shape[0] == 1) as rec_mg, \
+            _Recorder(ops, "quant_merge_pack",
+                      lambda a, b, two_eps, cap: a[0].shape[0] == 1 and b[0].shape[1] > 1
+                      and cap == pipe.tracker("q-win")._cap) as rec_q:
+        for n, i in enumerate(order):
+            feed(pipe, i, clock=True)
+            if n + 1 == WIN_SAVE_AFTER:
+                with tempfile.TemporaryDirectory() as tmp:
+                    t0 = time.perf_counter()
+                    pipe.save(tmp)
+                    ckpt["save_s"] = time.perf_counter() - t0
+                    ckpt["bytes"] = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                                        if f.is_file())
+                    t0 = time.perf_counter()
+                    loaded = StreamingPipeline.load(tmp, M, device=DEV, max_batch=8 * N_DIRS,
+                                                    default_deadline_s=3600.0)
+                    torch.cuda.synchronize()
+                    ckpt["load_s"] = time.perf_counter() - t0
+                ckpt["leaves_equal"] = all(
+                    sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in b)
+                    for a, b in ((loaded._tenant(t).adapter.state_payload()[0],
+                                  pipe._tenant(t).adapter.state_payload()[0]) for t in names))
+                ckpt["published_equal"] = all(
+                    np.array_equal(loaded.store.get(t).matrix, pipe.store.get(t).matrix)
+                    for t in names if t in pipe.store.tenants())
+            if n == WIN_SAVE_AFTER:  # the next arrival, into the loaded copy too, profiled
+                ckpt["profile"] = profile_ingest(torch, lambda: feed(loaded, i, clock=False), 1)
+                ckpt["tail"] = {"loaded": win_live_answers(loaded, x_live),
+                                "uninterrupted": win_live_answers(pipe, x_live)}
+                del loaded
+    torch.cuda.synchronize()
+    pipe._publish = publish
+    closes = {t: pipe.tracker(t).windows_closed() for t in names}
+    publishes = {t: pipe.stats(t).publishes for t in names}
+    late_rows = pipe.stats()["late_rows"]
+
+    # The final publish of every tenant, and the served queries.
+    t0 = time.perf_counter()
+    snaps = {t: pipe.publish(t) for t in names}
+    final_publish_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 63)
+    x = unit_dirs(torch, gen, N_DIRS).cpu().numpy()
+    hh_keys = np.concatenate([k for k, _ in streams["hh-win"]])
+    q_values = np.concatenate([v for v, _ in streams["q-win"]])
+    phis = rng.uniform(0.01, 0.99, N_DIRS // 2).astype(np.float32).astype(np.float64)
+    queries = dict(
+        x=x, ids=rng.choice(hh_keys, N_DIRS).astype(np.float32)[:, None],
+        q=np.stack([rank_query(v) for v in rng.choice(q_values, N_DIRS // 2)]
+                   + [quantile_query(p) for p in phis]).astype(np.float32),
+        sub=np.stack([subspace_query(v) for v in x]).astype(np.float32),
+        score=np.stack([score_query(v) for v in unit_dirs(torch, gen, N_DIRS).cpu().numpy()]
+                       ).astype(np.float32))
+    t0 = time.perf_counter()
+    served = win_served(pipe, queries)
+    serve_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dict(pipe=pipe, streams=streams, order=order, ingest_s=ingest_s, items=items,
+                policy_publish_s=publish_s, late=late, late_rows=late_rows, closes=closes,
+                publishes=publishes, snaps=snaps, publish_s=final_publish_s,
+                queries=queries, served=served,
+                serve_s=serve_s, ckpt=ckpt,
+                recorded={"mg_scan": rec_mg.args, "quant_merge_pack": rec_q.args})
+
+
+def win_folds(torch, win) -> dict:
+    """Each windowed tenant's serve fold taken again on its final state
+    (``serve()``, sorted buckets then sites, one merge at a time): seconds on
+    the synchronised host clock, states folded and kernel launches."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name in win["streams"]:
+        tr = win["pipe"].tracker(name)._tracked
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.serve()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in _delta(ops.launch_counts(), before).items() if v}
+        out[name] = dict(seconds=secs, states=tr.live_states(), merges=tr.live_states() - 1,
+                         launches=launches)
+    return out
+
+
+def win_truth(torch, win, name: str):
+    """The rows a windowed tenant's state covers, and their weights: the
+    batches applied by its watermark (late ones never), in its live buckets
+    (window) or aged by ``gamma ** (ref_ts - ts)`` (decay)."""
+    proto = win["pipe"].tracker(name)
+    tr = proto._tracked
+    wm = proto.watermark()
+    applied = [i for i in range(WIN_BATCHES) if i != WIN_LATE and i <= wm]
+    if hasattr(tr, "gamma"):
+        return [(i, tr.gamma ** (tr.ref_ts - i)) for i in applied]
+    live = set(tr._states)
+    return [(i, 1.0) for i in applied if math.floor(i / tr.width) in live]
+
+
+def check_windows(torch, win) -> dict:
+    """Path 6's windowed answers against truth over the rows their states
+    cover, counted in f64: matrix directions within ``err_factor * eps *
+    ||A_win||_F^2`` (decayed: of the decayed mass, against the decayed
+    truth), every HH key's estimate within ``err_factor * eps * W_win``, the
+    quantile probes' worst rank error within ``err_factor * eps * W_win``,
+    leverage subspace answers within ``err_factor * eps * ||A_win||_F^2`` and
+    score answers within rtol 1e-3, atol 1e-5 of ``table_scores`` on the
+    published table; window closes, publishes, the late batch and the
+    checkpoint."""
+    import numpy as np
+
+    from repro_torch.core.hh import decode_hh_snapshot
+    from repro_torch.core.leverage import table_scores
+    from repro_torch.core.quantiles import exact_ranks, quant_band
+    from repro_torch.runtime import get_spec
+
+    served, q, streams, snaps = win["served"], win["queries"], win["streams"], win["snaps"]
+    out = {}
+    x = torch.tensor(q["x"], device=DEV, dtype=torch.float64)
+    for name, answer, spec in (("mat-win", "mat-win", ("P2win", "matrix")),
+                               ("mat-decay", "mat-decay", ("P2decay", "matrix")),
+                               ("lev-win", "lev-subspace", ("P1win", "leverage"))):
+        ata = torch.zeros(D, D, dtype=torch.float64, device=DEV)
+        for i, g in win_truth(torch, win, name):
+            r = streams[name][i].double()
+            ata.addmm_(r.T, r, alpha=g)
+        mass = float(torch.diagonal(ata).sum())
+        truth = ((x @ ata) * x).sum(1).cpu().numpy()
+        gap = float(np.abs(served[answer].astype(np.float64) - truth).max()) / mass
+        factor = get_spec(spec[0], "shard", spec[1]).err_factor
+        check(gap <= factor * EPS, f"path 6 {name}: a direction is {gap:.3e} of the in-window "
+                                   f"mass off (limit {factor} eps)")
+        out[name] = dict(max_gap_over_mass=gap, limit=factor * EPS, mass=mass,
+                         frob_estimate=float(snaps[name].frob),
+                         batches=len(win_truth(torch, win, name)))
+    snap = snaps["lev-win"]
+    want = table_scores(snap.matrix, q["score"][:, 1:], float(snap.meta["lam"]))
+    got = served["lev-score"].astype(np.float64)
+    ratio = float((np.abs(got - want) / (SCORE_ATOL + SCORE_RTOL * np.abs(want))).max())
+    check(ratio <= 1.0, f"path 6 lev-win: score answers off the f64 oracle ({ratio:.3f} of tol)")
+    out["lev-win"]["score_err_over_tol"] = ratio
+
+    parts = [streams["hh-win"][i] for i, _ in win_truth(torch, win, "hh-win")]
+    keys = np.concatenate([k for k, _ in parts])
+    w = np.concatenate([v for _, v in parts])
+    truth = np.bincount(keys, weights=w, minlength=HH_KEYS)
+    w_win = float(w.sum())
+    est = np.zeros(HH_KEYS)
+    for e, v in decode_hh_snapshot(snaps["hh-win"].matrix).items():
+        est[e] = v
+    err = float(np.abs(est - truth).max()) / w_win
+    factor = get_spec("P1win", "shard", "hh").err_factor
+    check(err <= factor * EPS, f"path 6 hh-win: max |estimate - weight| = {err:.3e} W_win")
+    check(np.array_equal(served["hh-win"],
+                         est[q["ids"][:, 0].astype(np.int64)].astype(np.float32)),
+          "path 6 hh-win: served lookups differ from the published estimates")
+    out["hh-win"] = dict(max_err_over_w=err, limit=factor * EPS, w_win=w_win, items=len(keys))
+
+    parts = [streams["q-win"][i] for i, _ in win_truth(torch, win, "q-win")]
+    values = np.concatenate([v for v, _ in parts])
+    w = np.concatenate([v for _, v in parts])
+    w_win = float(w.sum())
+    ans = served["q-win"].astype(np.float64)
+    is_rank = q["q"][:, 0] == 0.0
+    rank_err = np.abs(ans[is_rank] - exact_ranks(values, w, q["q"][is_rank, 1])) / w_win
+    quant_err = np.abs(exact_ranks(values, w, ans[~is_rank])
+                       - q["q"][~is_rank, 1].astype(np.float64) * w_win) / w_win
+    worst = float(max(rank_err.max(), quant_err.max()))
+    factor = get_spec("P1win", "shard", "quantile").err_factor
+    # The fold of the live states (sorted buckets, then sites, one merge at
+    # a time, as the reference folds them) widens the summary's certified
+    # band with every merge, past the spec's envelope when many states fold
+    # (ROADMAP.md §3; the reference gives the same table): the answers are
+    # held to the band the served summary certifies, and the envelope is
+    # reported beside it.
+    band = quant_band(win["pipe"].tracker("q-win")._serve()) / w_win
+    check(worst <= band * (1.0 + 1e-6),
+          f"path 6 q-win: worst rank error {worst:.3e} W_win beyond the summary's certified "
+          f"band {band:.3e} W_win")
+    out["q-win"] = dict(worst_rank_err_over_w=worst, certified_band_over_w=band,
+                        envelope=factor * EPS, within_envelope=worst <= factor * EPS,
+                        w_win=w_win, items=len(values),
+                        states=win["pipe"].tracker("q-win")._tracked.live_states())
+
+    # Closes, publishes and the late batch.
+    pipe = win["pipe"]
+    for name in win["streams"]:
+        proto = pipe.tracker(name)
+        tr = proto._tracked
+        if hasattr(tr, "width"):
+            first = win["order"][0] - WIN_LATENESS
+            want_closes = math.floor(proto.watermark() / tr.width) - math.floor(first / tr.width)
+            check(win["closes"][name] == want_closes,
+                  f"path 6 {name}: {win['closes'][name]} windows closed, {want_closes} bucket "
+                  "boundaries crossed")
+        check(win["publishes"][name] == win["closes"][name],
+              f"path 6 {name}: {win['publishes'][name]} publishes for {win['closes'][name]} "
+              "closes")
+        check(win["late"][name] == 1 and proto.late_batches == 1,
+              f"path 6 {name}: the late batch was not shed once")
+    want_late = sum(len(b[0]) if isinstance(b, tuple) else b.shape[0]
+                    for b in (win["streams"][n][WIN_LATE] for n in win["streams"]))
+    check(win["late_rows"] == want_late,
+          f"path 6 late_rows {win['late_rows']}, the late batch held {want_late}")
+
+    ck = win["ckpt"]
+    check(ck["leaves_equal"] and ck["published_equal"],
+          "path 6: a leaf or a published snapshot differs right after the load")
+    tail = ck["tail"]
+    for name in ("hh-win", "q-win"):
+        check(np.array_equal(np.asarray(tail["loaded"][name] if name == "q-win"
+                                        else sorted(tail["loaded"][name].items())),
+                             np.asarray(tail["uninterrupted"][name] if name == "q-win"
+                                        else sorted(tail["uninterrupted"][name].items()))),
+              f"path 6 {name}: after one more batch the loaded pipeline answers differently")
+    tail_gap = {}
+    for name in ("mat-win", "mat-decay", "lev-win"):
+        a, b = (np.asarray(tail[k][name], np.float64) for k in ("loaded", "uninterrupted"))
+        check(a.shape == b.shape, f"path 6 {name}: answers of another shape after the load")
+        scale = max(float(np.abs(b).max()), 1e-30)
+        tail_gap[name] = float(np.abs(a - b).max()) / scale
+        check(tail_gap[name] <= PACK_TOL,
+              f"path 6 {name}: after one more batch {tail_gap[name]:.3e} off the uninterrupted "
+              "pipeline")
+    return dict(out, closes=win["closes"], publishes=win["publishes"],
+                late_rows=win["late_rows"], tail_gap=tail_gap,
+                comm={n: pipe.tracker(n).comm_report().as_dict() for n in win["streams"]})
+
+
+def path6_cases(torch, p3, win) -> list[dict]:
+    """Path 6's kernels at its shapes: ``quadform`` at P3's (L = s + 1, N =
+    N_DIRS, d = D) and a tall ragged stack on offset views; ``fd_gram`` and
+    ``fd_project`` at a windowed insert's (2l, d) = (200, 1024) buffer;
+    ``levscore`` at the windowed leverage tenant's published factor and
+    score queries; ``mg_scan`` and ``quant_merge_pack`` on the windowed
+    site inserts' recorded inputs, bit for bit."""
+    import numpy as np
+
+    from repro_torch.core.leverage import decode_leverage_snapshot, ridge_factor
+    from repro_torch.kernels import fd_ops, ops, ref
+
+    cases = []
+    b, x = p3["quadform_args"]
+    gen = torch.Generator(device=DEV).manual_seed(64)
+    l_tall = b.shape[0]
+    tall_b = torch.randn(2 * l_tall * 131 + 1, device=DEV, generator=gen)[1:].view(2, l_tall, 131)
+    tall_x = torch.randn(2 * 300 * 131 + 1, device=DEV, generator=gen)[1:].view(2, 300, 131)
+    for label, bb, xx, single in (("P3 query_batch", b[None], x[None], True),
+                                  ("tall, ragged, offset views", tall_b, tall_x, False)):
+        t, l, d = bb.shape
+        n = xx.shape[1]
+        cases.append(dict(
+            kernel="quadform" if single else "quadform_packed",
+            shape=f"{label}: (T={t}, L={l}, N={n}, d={d})",
+            pallas=PALLAS["quadform" if single else "quadform_packed"],
+            run=(lambda bb=bb, xx=xx: ops.quadform(bb[0], xx[0])) if single
+            else (lambda bb=bb, xx=xx: ops.quadform_packed(bb, xx)),
+            plain=(lambda bb=bb, xx=xx: ref.ref_quadform(bb[0], xx[0])) if single
+            else (lambda bb=bb, xx=xx: ref.ref_quadform_packed(bb, xx)),
+            library=(lambda bb=bb, xx=xx: (bb[0] @ xx[0].T).square().sum(0)) if single
+            else (lambda bb=bb, xx=xx: (bb @ xx.mT).square().sum(-2)),
+            on_path=single, flops=2.0 * t * l * n * d + 2.0 * t * l * n,
+            nbytes=4.0 * (t * l * d + t * n * d + t * n),
+        ))
+    l2 = 2 * win["pipe"].tracker("mat-win")._l
+    buf = win["streams"]["mat-win"][0][:l2][None].contiguous()
+    lam, u = ref.eigh_descending(ref.ref_fd_gram_batched(buf))
+    w, _ = ref.shrink_weights(lam, l2 // 2)
+    w, u = w.contiguous(), u.contiguous()
+    t, l, d = buf.shape
+    cases.append(dict(
+        kernel="fd_gram", shape=f"window insert shrink: (T={t}, L={l}, d={d})",
+        pallas=PALLAS["fd_gram"], run=lambda: fd_ops.fd_gram(buf),
+        plain=lambda: ref.ref_fd_gram_batched(buf), library=lambda: torch.bmm(buf, buf.mT),
+        symmetric=True, on_path=False,
+        flops=2.0 * t * l * (l + 1) / 2 * d, nbytes=4.0 * (t * l * d + t * l * l)))
+    cases.append(dict(
+        kernel="fd_project", shape=f"window insert shrink: (T={t}, L={l}, d={d})",
+        pallas=PALLAS["fd_project"], run=lambda: fd_ops.fd_project(w, u, buf),
+        plain=lambda: ref.ref_fd_project_batched(w, u, buf),
+        library=lambda: torch.bmm(u.mT, buf), on_path=False,
+        flops=2.0 * t * l * l * d + t * l * d, nbytes=4.0 * (t * l + t * l * l + 2 * t * l * d)))
+    snap = win["snaps"]["lev-win"]
+    rows, _, wts = decode_leverage_snapshot(snap.matrix)
+    m_f = torch.tensor(ridge_factor(rows, wts, float(snap.meta["lam"])), dtype=torch.float32,
+                       device=DEV)
+    xs = torch.tensor(np.ascontiguousarray(win["queries"]["score"][:, 1:]), device=DEV)
+    n, d = xs.shape
+    cases.append(dict(
+        kernel="levscore", shape=f"windowed score queries: (N={n}, d={d})",
+        pallas=PALLAS["levscore"], run=lambda: ops.levscore(m_f, xs),
+        plain=lambda: ref.ref_levscore(m_f, xs), library=lambda: (xs @ m_f * xs).sum(1),
+        on_path=False, flops=2.0 * n * d * d + 2.0 * n * d, nbytes=4.0 * (d * d + n * d + n)))
+    rec = win["recorded"]
+    check(rec["mg_scan"] is not None, "path 6 recorded no windowed mg_scan site insert")
+    check(rec["quant_merge_pack"] is not None,
+          "path 6 recorded no windowed quant_merge_pack site insert")
+    for case in (mg_scan_case(torch, rec["mg_scan"], "windowed site insert"),
+                 quant_merge_case(torch, rec["quant_merge_pack"], "windowed site insert")):
+        case["on_path"] = False
+        cases.append(case)
     return cases
 
 
@@ -2048,6 +2660,24 @@ def main() -> int:
     cases += run_kernel_cases(torch, hq_cases(torch, hq))
     for key in ("pipe", "batches", "tail", "recorded"):
         del hq[key]
+
+    # Path 6: shard P3 through the tracker, then windowed tenants in one pipeline.
+    t_p6 = time.perf_counter()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    p3 = drive_p3(torch, batches)
+    win = drive_windows(torch, batches, args.seed)
+    torch.cuda.synchronize()
+    p6_launches = ops.launch_counts()
+    p6_window_s = time.perf_counter() - t_p6
+    for name in P6_KERNELS:
+        check(p6_launches[name] > 0, f"kernel {name} was not launched on path 6")
+    p3_checks = check_p3(torch, p3, ata)
+    win_checks = check_windows(torch, win)
+    folds = win_folds(torch, win)
+    cases += run_kernel_cases(torch, path6_cases(torch, p3, win))
+    p6_s = time.perf_counter() - t_p6
+    del p3["tracker"], p3["quadform_args"], win["pipe"], win["streams"], win["recorded"]
     del batches, ata, lev_batches
     for key in ("serial", "packed"):
         del pk[key]["pipe"]
@@ -2117,6 +2747,28 @@ def main() -> int:
         answers_bit_identical_after_load=hq["loaded_bitwise"], checks=hq_checks,
         window_s=hq["hq_s"], phase_s=hq["phase_s"],
     )
+    step_s = p3["step_s"]
+    win_items_s = {n: win["items"][n] / win["ingest_s"][n] for n in win["items"]}
+    summary["path6"] = dict(
+        p3=dict(m=M, d=D, eps=EPS, s=p3["cfg"].s, steps=len(step_s),
+                rows=p3_checks["rows"], step_ms_median=1e3 * statistics.median(step_s),
+                step_ms_first=1e3 * step_s[0], rows_per_s=p3_checks["rows"] / sum(step_s),
+                publish_s=p3["publish_s"], query_batch_s=p3["query_s"], profile=p3["profile"],
+                checks=p3_checks),
+        windows=dict(batches=WIN_BATCHES, rows_a_batch=WIN_ROWS, window=WIN_WINDOW,
+                     buckets=WIN_BUCKETS, lateness=WIN_LATENESS, half_life=WIN_HALF_LIFE,
+                     order=win["order"], items=win["items"], ingest_s=win["ingest_s"],
+                     items_per_s=win_items_s, policy_publish_s=win["policy_publish_s"],
+                     items_per_s_without_publishes={
+                         n: win["items"][n] / max(win["ingest_s"][n]
+                                                  - win["policy_publish_s"][n], 1e-9)
+                         for n in win["items"]},
+                     final_publish_s=win["publish_s"],
+                     serve_s=win["serve_s"], folds=folds,
+                     checkpoint={k: v for k, v in win["ckpt"].items() if k != "tail"},
+                     checks=win_checks),
+        launches=p6_launches, window_s=p6_window_s, phase_s=p6_s,
+    )
     n_prompt, n_new = SERVE_BATCH * args.serve_prompt, SERVE_BATCH * (SERVE_GEN - 1)
     summary["serving_path"] = dict(
         arch=SERVE_ARCH, layers=srun["cfg"].n_layers, dtype=srun["cfg"].dtype,
@@ -2136,7 +2788,7 @@ def main() -> int:
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{main['source']}",
             replaces=PALLAS.get(name) or NO_PALLAS[name],
             launches=(run["launches"][name] + prun["launches"][name] + pk["launches"][name]
-                      + hq["launches"][name] + srun["launches"][name]
+                      + hq["launches"][name] + p6_launches[name] + srun["launches"][name]
                       + (f32_checks["flash_launches"] if name == "flash_attention" else 0)),
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
@@ -2245,6 +2897,57 @@ def main() -> int:
           f"bit-identical {hp['answers_bit_identical_after_load']}; after one more wave the "
           f"matrix tenant within {hp['checks']['tail_matrix_gap']:.2e} ||A||_F^2, the rest "
           f"bit-identical")
+    p6 = summary["path6"]
+    pc, wc = p6["p3"]["checks"], p6["windows"]["checks"]
+    print(f"path 6 P3 ({card}): m = {M}, d = {D}, eps = {EPS}, s = {p6['p3']['s']}: "
+          f"{p6['p3']['steps']} super-steps, median {p6['p3']['step_ms_median']:.3f} ms "
+          f"(first {p6['p3']['step_ms_first']:.3f}), {p6['p3']['rows_per_s']:.0f} rows/s "
+          f"(synchronised host clock); tau {pc['tau']:.6g} after {pc['doublings']} doublings; "
+          f"messages {json.dumps(pc['comm'])} for {pc['rows']} rows; ||A^T A - B^T B||_2 "
+          f"{pc['spectral_err']:.3e} ||A||_F^2 (limit {2 * EPS}); served directions within "
+          f"{pc['max_dir_gap']:.3e} (first {P3_CHECK_DIRS}; all {N_DIRS}: "
+          f"{pc['max_dir_gap_all']:.3e}; limit {pc['limit']:.3g}); publish "
+          f"{p6['p3']['publish_s']:.3f} s, query_batch {p6['p3']['query_batch_s']:.3f} s")
+    pp = p6["p3"]["profile"]
+    print(f"path 6 P3 profile of {pp['steps']} super-steps: wall {pp['wall_ms']:.2f} ms, device "
+          f"busy {pp['device_busy_ms']:.2f} ms ({pp['device_busy_share']:.1%}), "
+          f"{pp['device_launches']} launches; host self ms "
+          f"{json.dumps({k: round(v, 3) for k, v in pp['top_host_self_ms'].items()})}; device ms "
+          f"{json.dumps({k[:60]: round(v, 3) for k, v in pp['top_device_ms'].items()})}")
+    pw = p6["windows"]
+    print(f"path 6 windows ({card}): items/s "
+          + ", ".join(f"{n} {v:.0f}" for n, v in pw["items_per_s"].items())
+          + "; without the policy publishes "
+          + ", ".join(f"{n} {v:.0f}" for n, v in pw["items_per_s_without_publishes"].items())
+          + "; policy publish s "
+          + ", ".join(f"{n} {v:.2f}" for n, v in pw["policy_publish_s"].items())
+          + f" over {WIN_BATCHES} batches (synchronised host clock); closes "
+          f"{json.dumps(wc['closes'])}, publishes {json.dumps(wc['publishes'])}, late_rows "
+          f"{wc['late_rows']}; window {p6['window_s']:.1f} s, phase {p6['phase_s']:.1f} s")
+    for n, f in pw["folds"].items():
+        print(f"path 6 serve fold {n}: {f['states']} states, {f['seconds'] * 1e3:.1f} ms, "
+              f"launches {json.dumps(f['launches'])}")
+    for n in ("mat-win", "mat-decay", "lev-win"):
+        print(f"path 6 {n}: max gap {wc[n]['max_gap_over_mass']:.3e} of the in-state mass "
+              f"(limit {wc[n]['limit']:.3g}) over {wc[n]['batches']} batches")
+    print(f"path 6 lev-win scores: {wc['lev-win']['score_err_over_tol']:.3f} of tolerance; "
+          f"hh-win max |estimate - weight| {wc['hh-win']['max_err_over_w']:.3e} W_win (limit "
+          f"{wc['hh-win']['limit']:.3g}); q-win worst rank error "
+          f"{wc['q-win']['worst_rank_err_over_w']:.3e} W_win within the certified band "
+          f"{wc['q-win']['certified_band_over_w']:.3e} W_win of {wc['q-win']['states']} folded "
+          f"states (the spec's envelope {wc['q-win']['envelope']:.3g}: "
+          f"{'met' if wc['q-win']['within_envelope'] else 'missed, ROADMAP.md §3'})")
+    ck = pw["checkpoint"]
+    wp = ck["profile"]
+    print(f"path 6 profile of one arrival (5 tenants, the loaded copy): wall "
+          f"{wp['wall_ms']:.1f} ms, eigh {wp['eigh_host_ms']:.1f} ms of host time "
+          f"({wp['eigh_host_share']:.1%}, {wp['eigh_calls']} calls), device busy "
+          f"{wp['device_busy_share']:.1%}")
+    print(f"path 6 checkpoint after {WIN_SAVE_AFTER} arrivals: save {ck['save_s']:.2f} s, load "
+          f"{ck['load_s']:.2f} s, {ck['bytes']} bytes; leaves equal {ck['leaves_equal']}, "
+          f"published equal {ck['published_equal']}; after one more batch "
+          f"{json.dumps(wc['tail_gap'])}, HH and quantile bit-identical; launches in the window "
+          f"{json.dumps({k: p6['launches'][k] for k in P6_KERNELS})}")
     sp = summary["serving_path"]
     print(f"serving {SERVE_ARCH}: {SERVE_BATCH} x {args.serve_prompt} prompt tokens, "
           f"{SERVE_GEN} new each: prefill tokens/s {sp['prefill_tokens_per_s']}, "

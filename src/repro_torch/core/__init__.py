@@ -12,9 +12,13 @@ Ported so far:
                      streams and codec
   * leverage.py    — leverage-score row sampling: oracle, codec, event
                      streams, the tensor reservoir
+  * sampling.py    — priority sampling (Duffield--Lund--Thorup)
   * distributed.py — super-step engine with the sites on a tensor axis:
-                     matrix P1/P2, heavy-hitter P1, quantile P1, leverage P1
+                     matrix P1/P2/P3, heavy-hitter P1, quantile P1,
+                     leverage P1
   * tracker.py     — continuous tracking facade for training integration
+  * windows.py     — time as a dimension: bucketed sliding windows +
+                     exponential decay over the mergeable sketch states
 """
 from repro_torch.core.fd import (
     FDSketch,
@@ -30,3 +34,10 @@ from repro_torch.core.fd import (
 from repro_torch.core.comm import CommReport
 from repro_torch.core.distributed import ProtocolConfig, make_protocol_runner
 from repro_torch.core.tracker import DistributedMatrixTracker
+from repro_torch.core.windows import (
+    ExponentialDecay,
+    LateRowError,
+    SlidingWindow,
+    TimedRows,
+    WatermarkTracker,
+)

@@ -33,6 +33,8 @@ Protocols ported so far:
     * ``P2`` — the paper's best: per-direction sigma^2 thresholds.  After an
       FD shrink the buffer rows *are* ``sigma_i v_i`` (orthogonal), so the
       send set is a row mask — no extra SVD on the hot path.
+    * ``P3`` — distributed priority sampling without replacement (size-s
+      classical priority sample kept as a fixed top-(s+1) buffer).
     * ``LP1`` — leverage-score row sampling: threshold forwarding of
       high-score rows into a coordinator reservoir, FD residual for the rest.
     * ``HHP1`` — weighted heavy hitters: per-site Misra--Gries summaries,
@@ -72,6 +74,12 @@ __all__ = [
     "p2_init",
     "p2_step",
     "p2_query",
+    "P3State",
+    "p3_init",
+    "p3_step",
+    "p3_draws",
+    "p3_matrix",
+    "PRNG_KEY_LEAVES",
     "HHP1State",
     "hh_p1_init",
     "hh_p1_step",
@@ -729,37 +737,201 @@ def lev_p1_lambda(cfg: ProtocolConfig, st: LevP1State) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Protocol 3 — distributed priority sampling (without replacement)
+#
+# Every site draws u ~ U(0, 1] per row and forwards the rows whose priority
+# rho = ||a||^2 / u reaches the round threshold tau; the coordinator keeps
+# the s + 1 largest priorities (a stable descending sort: among equal
+# priorities the earlier slot, the reference's ``lax.top_k`` order) and
+# doubles tau while at least s of them reach 2 tau.
+#
+# The random state is data: each site's key is two u32 words, held in an
+# int64 (m, 2) leaf (the layout of the reference's raw key data), from
+# which a counter-based hash derives the step's draws on the device —
+# the same integers on the CPU and the card — and the next key.  So the
+# same state and rows give the same next state, with no host round trip.
+# ``jax.random``'s streams are not reproduced.
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finaliser (xorshift-multiply, both multipliers below
+    2**31, so a u32 word times one stays inside int64) on int64 tensors of
+    u32 words."""
+    x = x & _M32
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _M32
+    return x ^ (x >> 15)
+
+
+class P3State(NamedTuple):
+    """Matrix P3 state: per-site random keys + the coordinator's priority sample."""
+    rng: torch.Tensor  # per-site (m, 2) int64 — each site's key, two u32 words
+    tau: torch.Tensor  # () f32 — round threshold
+    buf_rows: torch.Tensor  # (s+1, d) — top-priority rows
+    buf_w: torch.Tensor  # (s+1,)
+    buf_rho: torch.Tensor  # (s+1,)
+    comm: CommCounters
+
+
+def p3_init(cfg: ProtocolConfig, device=None) -> P3State:
+    """Initial P3 state: distinct keys for the m sites, an empty sample."""
+    cfg = cfg.resolved()
+    device = resolve_device(device)
+    words = torch.arange(2 * cfg.m, dtype=torch.int64, device=device)
+    return P3State(
+        rng=_hash32(_hash32(words) ^ 0x9E3779B9).reshape(cfg.m, 2),
+        tau=torch.ones((), dtype=torch.float32, device=device),
+        buf_rows=torch.zeros((cfg.s + 1, cfg.d), dtype=torch.float32, device=device),
+        buf_w=torch.zeros(cfg.s + 1, dtype=torch.float32, device=device),
+        buf_rho=torch.zeros(cfg.s + 1, dtype=torch.float32, device=device),
+        comm=CommCounters.zero(device),
+    )
+
+
+def p3_draws(rng: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step's draws ``u``, (m, b) f32 in [2**-24, 1], and the sites' next keys.
+
+    Draw j of site i hashes the site's key words, i and j: 24 random bits
+    per draw, as ``(bits + 1) / 2**24``.
+    """
+    m = rng.shape[0]
+    site = torch.arange(m, dtype=torch.int64, device=rng.device)
+    seed = _hash32(rng[:, 0] ^ _hash32(rng[:, 1] ^ _hash32(site + 0x85EBCA6B)))
+    j = torch.arange(b, dtype=torch.int64, device=rng.device)
+    bits = _hash32(seed[:, None] ^ _hash32(j + 0xC2B2AE35)[None]) >> 8
+    u = (bits + 1).to(torch.float32) * 2.0**-24
+    k0 = _hash32(rng[:, 0] ^ 0x27D4EB2F)
+    nxt = torch.stack([k0, _hash32(rng[:, 1] ^ _hash32(k0 ^ 0x165667B1))], dim=1)
+    return u, nxt
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """``2**k`` in f32, exactly, for integer 0 <= k <= 127 (built from its bits)."""
+    return ((k + 127) << 23).to(torch.int32).view(torch.float32)
+
+
+def _p3_absorb(cfg: ProtocolConfig, st: P3State, rows: torch.Tensor,
+               u: torch.Tensor) -> P3State:
+    """The deterministic half of a P3 super-step: rows (m * b, d) with their
+    draws ``u`` (m, b) — priorities, the masked ship, the top s + 1, the
+    round advance and the counters.  ``rng`` is left as it is."""
+    cfg = cfg.resolved()
+    if rows.ndim != 2:
+        raise ValueError(f"P3 steps one tenant: (m * b, {cfg.d}) rows, got {tuple(rows.shape)}")
+    rows = _site_rows(cfg, rows).float()  # (m, b, d)
+    w = _row_sq(rows)
+    rho = w / u
+    mask = rho >= st.tau
+    n_sent = mask.sum().to(torch.int32)
+
+    cand_rows = torch.where(mask[..., None], rows, 0.0).reshape(-1, cfg.d)
+    cand_w = torch.where(mask, w, 0.0).reshape(-1)
+    cand_rho = torch.where(mask, rho, 0.0).reshape(-1)
+    top = torch.sort(torch.cat([st.buf_rho, cand_rho]), descending=True, stable=True)
+    idx = top.indices[: cfg.s + 1]
+    buf_rho = top.values[: cfg.s + 1]
+    buf_w = torch.cat([st.buf_w, cand_w]).index_select(0, idx)
+    buf_rows = torch.cat([st.buf_rows, cand_rows]).index_select(0, idx)
+
+    # Round advance.  The reference doubles tau while at least s buffered
+    # priorities reach 2 tau, i.e. while the s-th largest, r, reaches
+    # 2**(k+1) tau: it stops at k = max(0, floor(log2(r / tau))).  With
+    # r = mr 2**er and tau = mt 2**et (mantissas in [0.5, 1)) that floor is
+    # er - et, less one where mr < mt — exact, where a float log2 of the
+    # ratio could round across an integer.  Doubling is exact in f32.
+    mr, er = torch.frexp(buf_rho[cfg.s - 1])
+    mt, et = torch.frexp(st.tau)
+    k = (er - et - (mr < mt).to(er.dtype)).clamp(0, 127).to(torch.int64)
+    new_tau = st.tau * _pow2(k)
+
+    comm = CommCounters(
+        scalar_msgs=st.comm.scalar_msgs,
+        row_msgs=st.comm.row_msgs + n_sent,
+        broadcast_events=st.comm.broadcast_events + k.to(torch.int32),
+    )
+    return P3State(st.rng, new_tau, buf_rows, buf_w, buf_rho, comm)
+
+
+def p3_step(cfg: ProtocolConfig, st: P3State, rows: torch.Tensor) -> P3State:
+    """One P3 super-step on a global (m * b, d) batch; site i takes slice i.
+
+    Not packable: the draws follow the row count, so zero padding would
+    change the sample.
+    """
+    cfg = cfg.resolved()
+    u, rng = p3_draws(st.rng, rows.shape[0] // cfg.m)
+    return _p3_absorb(cfg, st, rows, u)._replace(rng=rng)
+
+
+def p3_matrix(st: P3State) -> torch.Tensor:
+    """Coordinator estimate matrix B from the priority sample (s rows).
+
+    Classical priority-sample estimator: tau_hat = smallest buffered
+    priority; every other kept row is rescaled to squared norm max(w, tau_hat).
+    """
+    live = st.buf_rho > 0
+    masked = torch.where(live, st.buf_rho, float("inf"))
+    smallest = torch.argmin(masked)  # the first of equal minima, as jnp.argmin
+    tau_hat = masked[smallest]
+    tau_hat = torch.where(torch.isfinite(tau_hat), tau_hat, 0.0)
+    keep = live & (torch.arange(st.buf_rho.shape[0], device=live.device) != smallest)
+    wbar = torch.maximum(st.buf_w, tau_hat)
+    scale = torch.sqrt(wbar / st.buf_w.clamp_min(1e-30))
+    return torch.where(keep[:, None], st.buf_rows * scale[:, None], 0.0)
+
+
+# ---------------------------------------------------------------------------
 # Runner
 # ---------------------------------------------------------------------------
 
-_INITS = {"P1": p1_init, "P2": p2_init, "HHP1": hh_p1_init, "QP1": quant_p1_init,
-          "LP1": lev_p1_init}
-_STEPS = {"P1": p1_step, "P2": p2_step, "HHP1": hh_p1_step, "QP1": quant_p1_step,
-          "LP1": lev_p1_step}
-_MATRIX_PROTOCOLS = ("P1", "P2")
+_INITS = {"P1": p1_init, "P2": p2_init, "P3": p3_init, "HHP1": hh_p1_init,
+          "QP1": quant_p1_init, "LP1": lev_p1_init}
+_STEPS = {"P1": p1_step, "P2": p2_step, "P3": p3_step, "HHP1": hh_p1_step,
+          "QP1": quant_p1_step, "LP1": lev_p1_step}
+_MATRICES = {
+    "P1": lambda st: fdlib.fd_matrix(st.coord_fd),
+    "P2": lambda st: fdlib.fd_matrix(st.coord_fd),
+    "P3": p3_matrix,
+}
+
+# State leaves that hold random keys, per protocol: checkpoints store them
+# as the reference stores its PRNG keys' raw data (u32 words), tagged
+# ``"prng_key"``.
+PRNG_KEY_LEAVES = {"P3": ("rng",)}
 
 
 def protocol_matrix(protocol: str, state) -> torch.Tensor:
     """The coordinator's sketch matrix B for any matrix protocol state (uniform)."""
-    if protocol not in _MATRIX_PROTOCOLS:
-        raise KeyError(f"no matrix protocol {protocol!r} (ported: {list(_MATRIX_PROTOCOLS)})")
-    return fdlib.fd_matrix(state.coord_fd)
+    if protocol not in _MATRICES:
+        raise KeyError(f"no matrix protocol {protocol!r} (ported: {list(_MATRICES)})")
+    return _MATRICES[protocol](state)
 
 
-def protocol_frob(protocol: str, state) -> float:
+def protocol_frob(protocol: str, state, matrix=None) -> float:
     """Coordinator estimate of the stream mass ``||A||_F^2`` (uniform).
 
     P1/P2 carry the coordinator's running broadcast estimate ``f_hat``
-    (within (1+eps) of ``||A||_F^2``).
+    (within (1+eps) of ``||A||_F^2``); P3's priority-sample estimator matrix
+    preserves the stream mass by construction, so its own Frobenius norm
+    stands in (pass ``matrix``, host or tensor, to reuse an already
+    materialized sketch).
     """
-    if protocol not in _MATRIX_PROTOCOLS:
-        raise KeyError(f"no matrix protocol {protocol!r} (ported: {list(_MATRIX_PROTOCOLS)})")
-    return float(state.f_hat)
+    if protocol not in _MATRICES:
+        raise KeyError(f"no matrix protocol {protocol!r} (ported: {list(_MATRICES)})")
+    if protocol in ("P1", "P2"):
+        return float(state.f_hat)
+    b = protocol_matrix(protocol, state) if matrix is None else torch.as_tensor(matrix)
+    return float(b.float().square().sum())
 
 
 def make_protocol_runner(protocol: str, cfg: ProtocolConfig, device=None):
-    """Return ``(init_state, step)`` for one protocol (``P1``, ``P2``, ``LP1``,
-    ``HHP1``, ``QP1``).
+    """Return ``(init_state, step)`` for one protocol (``P1``, ``P2``, ``P3``,
+    ``LP1``, ``HHP1``, ``QP1``).
 
     For the matrix protocols and ``LP1`` ``step(state, rows)`` consumes a
     global ``(m * b, d)`` tensor on the state's device; site i takes rows

@@ -8,9 +8,11 @@ Ported so far:
                   engines of the matrix, heavy-hitter, quantile and
                   leverage kinds.
   * policies.py — publish policies and tenant quotas (a copy).
-  * pipeline.py — ``StreamingPipeline``: matrix, heavy-hitter, quantile
-                  and leverage tenants' ingest → publish → packed serve,
-                  checkpoints.
+  * pipeline.py — ``StreamingPipeline``: matrix, heavy-hitter, quantile,
+                  leverage and windowed tenants' ingest → publish → packed
+                  serve, checkpoints.
+  * windowed.py — sliding-window and exponential-decay flavours of all four
+                  kinds, registered as ``(kind, engine, name)`` specs.
   * ingest_packed.py — stacked multi-tenant ingest: same-shape super-step
                   tenants advance in one step (``ingest_many``).
 """
@@ -20,9 +22,12 @@ from repro_torch.runtime.policies import (
     EveryKSteps,
     FrobDrift,
     OnDemand,
+    OnWindowClose,
     PublishPolicy,
     RetryPolicy,
     TenantQuota,
+    policy_from_config,
+    policy_to_config,
 )
 from repro_torch.runtime.registry import (
     HHProtocol,
@@ -36,6 +41,12 @@ from repro_torch.runtime.registry import (
     register_protocol,
     specs,
 )
+from repro_torch.runtime.windowed import (
+    WindowedHHProtocol,
+    WindowedLeverageProtocol,
+    WindowedMatrixProtocol,
+    WindowedQuantileProtocol,
+)
 
 __all__ = [
     "EveryKSteps",
@@ -43,6 +54,7 @@ __all__ = [
     "HHProtocol",
     "LeverageProtocol",
     "OnDemand",
+    "OnWindowClose",
     "ProtocolSpec",
     "PublishPolicy",
     "QuantileProtocol",
@@ -51,10 +63,16 @@ __all__ = [
     "StreamingPipeline",
     "TenantQuota",
     "TenantStats",
+    "WindowedHHProtocol",
+    "WindowedLeverageProtocol",
+    "WindowedMatrixProtocol",
+    "WindowedQuantileProtocol",
     "create_protocol",
     "get_spec",
     "ingest_packed",
     "pack_signature",
+    "policy_from_config",
+    "policy_to_config",
     "protocol_names",
     "register_protocol",
     "specs",

@@ -55,16 +55,22 @@ resumes ingest mid-stream and answers identically, and each package loads
 the other's checkpoints; ``export_tenant``/``import_tenant`` move one
 tenant.
 
-Not ported yet: windowed tenants, which raise ``NotImplementedError``
-naming their ROADMAP item (10).
+Windowed tenants (``add_windowed_tenant``: a sliding window or an
+exponential decay over any of the four kinds, ``runtime/windowed.py``)
+take event time — ``ingest(tenant, rows, ts=...)`` or a ``TimedRows``
+batch — shed batches later than their watermark into the ``late_rows``
+counter with a ``LateRowError``, and publish snapshots tagged with the
+underlying kind, so they serve through the same packed sweeps.
 """
 from __future__ import annotations
 
+import math
 from typing import Iterable, NamedTuple
 
 import numpy as np
 
 from repro_torch import resolve_device
+from repro_torch.core.windows import LateRowError, TimedRows
 from repro_torch.obs import Observability, rehome_families
 from repro_torch.query import QueryEngine, SketchStore
 from repro_torch.query.service import PackedQueryService, QueryTicket, ServicePump
@@ -79,12 +85,6 @@ from repro_torch.runtime.policies import (
 __all__ = ["StreamingPipeline", "TenantStats"]
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, open item {item})"
-    )
-
-
 class TenantStats(NamedTuple):
     """One tenant's lifetime pipeline counters."""
 
@@ -95,7 +95,7 @@ class TenantStats(NamedTuple):
     latest_version: int | None
     live_frob: float  # live stream-mass estimate ||A||_F^2
     comm_total: int  # protocol messages spent (paper units)
-    workload: str = "matrix"  # "matrix" | "hh" | "quantile" | "leverage"
+    workload: str = "matrix"  # "matrix" | "hh" | "quantile" | "leverage" | "windowed"
 
 
 class _MatrixAdapter:
@@ -118,6 +118,10 @@ class _MatrixAdapter:
     def live_mass(self) -> float:
         """Live ``||A||_F^2`` estimate (what publish policies read)."""
         return self.tracker.frob_estimate()
+
+    def publish_time(self, clock) -> float:
+        """Snapshot timeline stamp: wall-clock for full-stream tenants."""
+        return float(clock())
 
     def publish(self, store, tenant: str, meta: dict, published_at: float = 0.0):
         """Publish the coordinator sketch B as the tenant's next version."""
@@ -183,6 +187,10 @@ class _RegistryAdapter:
     def live_mass(self) -> float:
         """Live stream-mass estimate (what publish policies read)."""
         return self.proto.total_weight()
+
+    def publish_time(self, clock) -> float:
+        """Snapshot timeline stamp: wall-clock for full-stream tenants."""
+        return float(clock())
 
     def check_query(self, x: np.ndarray) -> None:
         """Reject wrong-shape queries at the submitter (see pipeline.submit)."""
@@ -308,6 +316,84 @@ class _LeverageAdapter(_RegistryAdapter):
         return {**super().ctor_meta(), "d": self.proto.d}
 
 
+class _WindowedAdapter(_RegistryAdapter):
+    """Registry adapter for time-windowed tenants of any protocol kind.
+
+    The checkpoint manifest records ``workload = "windowed"`` (so ``load``
+    rebuilds through ``add_windowed_tenant``), but published snapshots are
+    tagged with the *underlying* kind — a windowed matrix snapshot rides
+    the engine's packed quadform sweeps, a windowed HH snapshot its lookup
+    sweep, and so on: windowed tenants serve through the exact same
+    ``query_packed`` and checkpoint machinery as full-stream ones.
+    """
+
+    workload = "windowed"
+
+    def ingest(self, rows, ts: float | None = None) -> None:
+        """Advance the windowed protocol one step at event time ``ts``."""
+        self.proto.step(rows, ts=ts)
+
+    def windows_closed(self) -> int:
+        """Buckets sealed by the watermark so far (OnWindowClose's signal)."""
+        return self.proto.windows_closed()
+
+    def window_lag(self) -> float:
+        """Event-time spread still parked behind the watermark (gauge)."""
+        return self.proto.window_lag()
+
+    def publish_time(self, clock) -> float:
+        """Snapshot timeline stamp: the event-time watermark, not wall-clock."""
+        wm = self.proto.watermark()
+        return float(wm) if math.isfinite(wm) else 0.0
+
+    def publish(self, store, tenant: str, meta: dict, published_at: float = 0.0):
+        """Publish the in-window fold tagged as the underlying kind."""
+        md = {
+            "workload": self.proto.kind,
+            "protocol": self.proto.name,
+            "engine": self.proto.engine,
+            "m": self.proto.m,
+            "windowed": True,
+            "windows_closed": self.proto.windows_closed(),
+        }
+        if self.proto.kind == "leverage":
+            md["lam"] = self.proto.lam()
+            md["d"] = self.proto.d
+        md.update(meta)
+        return store.publish(
+            tenant,
+            self.proto.snapshot_matrix(),
+            frob=self.proto.total_weight(),
+            eps=self.proto.eps,
+            n_seen=self.proto.rows_seen,
+            meta=md,
+            published_at=published_at,
+        )
+
+    def check_query(self, x: np.ndarray) -> None:
+        """Delegate to the underlying kind's query-shape contract."""
+        kind = self.proto.kind
+        if kind == "matrix":
+            d = self.proto.d
+            if x.shape != (d,):
+                raise ValueError(
+                    f"matrix tenants take a ({d},) direction, got shape {x.shape}"
+                )
+        elif kind == "hh":
+            _HHAdapter.check_query(self, x)
+        elif kind == "quantile":
+            _QuantileAdapter.check_query(self, x)
+        else:
+            _LeverageAdapter.check_query(self, x)
+
+    def ctor_meta(self) -> dict:
+        """Construction parameters ``load`` needs to rebuild the tenant."""
+        meta = {**super().ctor_meta(), "kind": self.proto.kind}
+        if self.proto.kind in ("matrix", "leverage"):
+            meta["d"] = self.proto.d
+        return meta
+
+
 class _Tenant:
     __slots__ = ("adapter", "policy", "quota", "steps", "steps_since_publish",
                  "publishes", "published_frob", "latest_version", "metrics")
@@ -333,8 +419,7 @@ class StreamingPipeline:
     # lifetime-cumulative; ingest_s is wall time inside protocol steps
     # (packed launches + serial steps), excluding publishes and query
     # pumping.  Stored as ``repro_ingest_<key>_total`` counters in the obs
-    # registry (ingest_s as ``repro_ingest_seconds_total``).  The
-    # reference's late-row counter arrives with windows.
+    # registry (ingest_s as ``repro_ingest_seconds_total``).
     _INGEST_KEYS = (
         ("rows", "Real stream rows / weighted items absorbed."),
         ("batches", "Ingest batches absorbed (serial + packed slices)."),
@@ -349,6 +434,7 @@ class StreamingPipeline:
         # state (first wave of a group, or a member stepped / restored out
         # of band since the last wave).
         ("restacks", "Packed launches that had to restack member states."),
+        ("late_rows", "Rows shed for arriving behind a windowed tenant's watermark."),
         ("ingest_s", "Wall time inside protocol steps."),
     )
 
@@ -363,6 +449,7 @@ class StreamingPipeline:
         ("gauge", "repro_tenant_f_hat", "Published Frobenius mass per tenant."),
         ("gauge", "repro_tenant_version", "Latest published store version per tenant."),
         ("gauge", "repro_tenant_publish_lag_steps", "Ingest steps since the tenant last published."),
+        ("gauge", "repro_tenant_window_lag", "Event-time lag behind the watermark per windowed tenant."),
         ("gauge", "repro_comm_scalar_msgs", "Protocol communication accounting (paper units)."),
         ("gauge", "repro_comm_row_msgs", "Protocol communication accounting (paper units)."),
         ("gauge", "repro_comm_broadcast_events", "Protocol communication accounting (paper units)."),
@@ -426,11 +513,13 @@ class StreamingPipeline:
             "histogram", "repro_publish_latency_seconds",
             "Publish latency per snapshot.")
         for name, t in self._tenants.items():
-            t.metrics = self._tenant_gauges(name)
+            t.metrics = self._tenant_gauges(
+                name, windowed=hasattr(t.adapter, "window_lag")
+            )
 
-    def _tenant_gauges(self, tenant: str) -> dict:
+    def _tenant_gauges(self, tenant: str, *, windowed: bool = False) -> dict:
         labels = {"tenant": tenant}
-        return {
+        handles = {
             "f_hat": self.obs.handle(
                 "gauge", "repro_tenant_f_hat",
                 "Published Frobenius mass per tenant.", labels=labels),
@@ -441,6 +530,12 @@ class StreamingPipeline:
                 "gauge", "repro_tenant_publish_lag_steps",
                 "Ingest steps since the tenant last published.", labels=labels),
         }
+        if windowed:
+            handles["window_lag"] = self.obs.handle(
+                "gauge", "repro_tenant_window_lag",
+                "Event-time lag behind the watermark per windowed tenant.",
+                labels=labels)
+        return handles
 
     def bind_obs(self, obs: Observability) -> None:
         """Re-home the whole serving stack's telemetry into ``obs``.
@@ -489,7 +584,7 @@ class StreamingPipeline:
 
     def _register(self, tenant: str, adapter, policy, quota) -> None:
         t = _Tenant(adapter, policy or self.default_policy, quota)
-        t.metrics = self._tenant_gauges(tenant)
+        t.metrics = self._tenant_gauges(tenant, windowed=hasattr(adapter, "window_lag"))
         self._tenants[tenant] = t
         if quota is not None:
             self.service.set_quota(
@@ -634,9 +729,72 @@ class StreamingPipeline:
         return self._add_pair_tenant(tenant, "quantile", _QuantileAdapter, eps, protocol,
                                      engine, policy, quota, kw)
 
-    def add_windowed_tenant(self, tenant: str, **kw):
-        """Windowed tenants wait for the window layer."""
-        _not_ported("add_windowed_tenant (windowed tenants)", 10)
+    def add_windowed_tenant(
+        self,
+        tenant: str,
+        *,
+        kind: str = "matrix",
+        d: int | None = None,
+        eps: float | None = None,
+        protocol: str | None = None,
+        engine: str = "event",
+        policy: PublishPolicy | None = None,
+        quota: TenantQuota | None = None,
+        **kw,
+    ):
+        """Register a time-windowed tenant of any kind; returns its protocol.
+
+        ``protocol`` defaults to the sliding-window spec for the kind
+        (``"P2win"`` for matrix, ``"P1win"`` otherwise); pass ``"P2decay"``
+        / ``"P1decay"`` for exponential decay.  ``ingest`` then accepts
+        event timestamps (``ts=`` or ``TimedRows``), rows later than the
+        watermark are shed with a counted ``LateRowError``, and published
+        snapshots carry the underlying kind's workload tag so windowed
+        tenants serve through the same packed sweeps as full-stream ones.
+        Extra ``kw`` (``window``, ``buckets``, ``lateness``, ``gamma``,
+        ``half_life``, ``sites``, per-kind sizes) pass through to the
+        windowed factory and are recorded so ``load`` rebuilds the tenant
+        identically.  ``engine="shard"`` runs the pipeline's m sites as
+        software sites (rows round-robin over them); either engine keeps
+        its sketch states on the pipeline's device.  Pairs naturally with
+        ``policy=OnWindowClose()``.
+        """
+        from repro_torch.runtime.registry import create_protocol
+
+        if tenant in self._tenants:
+            raise ValueError(f"tenant {tenant!r} already registered")
+        if engine not in ("event", "shard"):
+            raise ValueError(
+                f"unknown windowed engine {engine!r}; choose 'event' or 'shard'"
+            )
+        if kind not in ("matrix", "hh", "quantile", "leverage"):
+            raise ValueError(
+                f"unknown windowed kind {kind!r}; choose 'matrix', 'hh', "
+                "'quantile', or 'leverage'"
+            )
+        if protocol is None:
+            protocol = "P2win" if kind == "matrix" else "P1win"
+        eps = self.default_eps if eps is None else eps
+        # The recorded kw is what ``load`` passes back, as the reference
+        # records it: the event engine's m, not the shard flavour's (whose
+        # m is the pipeline's, as the reference's is its mesh's).
+        kw = dict(kw)
+        dim_kw = {}
+        if kind in ("matrix", "leverage"):
+            if d is None:
+                raise ValueError(f"windowed {kind} tenants need d")
+            dim_kw["d"] = int(d)
+        elif d is not None:
+            raise ValueError(f"windowed {kind} tenants take no d")
+        if engine == "shard":
+            proto = create_protocol(protocol, engine="shard", kind=kind, m=self.m, eps=eps,
+                                    device=self.device, **dim_kw, **kw)
+        else:
+            kw.setdefault("m", self.m)
+            proto = create_protocol(protocol, engine="event", kind=kind, eps=eps,
+                                    device=self.device, **dim_kw, **kw)
+        self._register(tenant, _WindowedAdapter(proto, kw), policy, quota)
+        return proto
 
     def _add_from_ctor(
         self,
@@ -679,7 +837,17 @@ class StreamingPipeline:
                 quota=quota,
             )
         elif workload == "windowed":
-            _not_ported("windowed tenants", 10)
+            self.add_windowed_tenant(
+                tenant,
+                kind=str(ctor["kind"]),
+                d=int(ctor["d"]) if "d" in ctor else None,
+                eps=float(ctor["eps"]),
+                protocol=str(ctor["protocol"]),
+                engine=str(ctor["engine"]),
+                policy=policy,
+                quota=quota,
+                **ctor["kw"],
+            )
         else:
             raise ValueError(f"unknown tenant workload {workload!r}")
 
@@ -841,8 +1009,8 @@ class StreamingPipeline:
         return sorted(self._tenants)
 
     def workload(self, tenant: str) -> str:
-        """The tenant's workload kind (``"matrix"``, ``"hh"``, ``"quantile"``
-        or ``"leverage"``)."""
+        """The tenant's workload kind (``"matrix"``, ``"hh"``, ``"quantile"``,
+        ``"leverage"``, or ``"windowed"``)."""
         return self._tenant(tenant).adapter.workload
 
     def tracker(self, tenant: str):
@@ -874,8 +1042,12 @@ class StreamingPipeline:
         tensor; a tensor on the pipeline's device is never copied through
         the host), HH tenants an (n, 2) [element, weight] batch, quantile
         tenants an (n, 2) [value, weight] batch (or, for both, a ``(keys or
-        values, weights)`` pair of 1-D arrays).  ``ts`` belongs to windowed
-        tenants and is refused here.
+        values, weights)`` pair of 1-D arrays).  Windowed tenants
+        additionally take the batch's event time — pass ``ts=`` or wrap the
+        batch in ``core.windows.TimedRows``; a batch later than the tenant's
+        watermark is *shed*: counted in the ``late_rows`` ingest counter and
+        rejected with ``LateRowError``, never silently dropped.  Full-stream
+        tenants refuse a timestamp.
         Returns the new ``SketchSnapshot`` if the policy fired, else None.
         When no ``ServicePump`` is running this also pumps the packed
         service's deadlines cooperatively, so a pure ingest loop still
@@ -883,9 +1055,18 @@ class StreamingPipeline:
         detected here and surfaced as ``ServicePumpError``.
         """
         t = self._tenant(tenant)
+        if isinstance(rows, TimedRows):
+            if ts is None:
+                ts = rows.ts
+            rows = rows.rows
         with self.obs.trace("pipeline.ingest", tenant=tenant):
             t0 = self.obs.clock()
-            t.adapter.ingest(rows, ts=ts)
+            try:
+                t.adapter.ingest(rows, ts=ts)
+            except LateRowError as e:
+                self._m_ingest["late_rows"].inc(e.n_rows)
+                self._m_ingest["ingest_s"].inc(self.obs.clock() - t0)
+                raise
             self._m_ingest["ingest_s"].inc(self.obs.clock() - t0)
             self._m_ingest["serial_steps"].inc()
             self._m_ingest["batches"].inc()
@@ -897,6 +1078,8 @@ class StreamingPipeline:
     @staticmethod
     def _batch_len(rows) -> int:
         """Items in one ingest batch ((n, ...) array or (keys, weights))."""
+        if isinstance(rows, TimedRows):
+            rows = rows.rows
         if isinstance(rows, tuple):
             rows = rows[0]
         return int(rows.shape[0]) if hasattr(rows, "shape") else len(rows)
@@ -905,9 +1088,11 @@ class StreamingPipeline:
         """Drive interleaved tenants: ``[(tenant, rows), ...]``; returns the
         number of snapshots published.
 
-        Entries may also be ``(tenant, rows, ts)`` triples; timed batches
-        always take the serial per-tenant path (the packed launch has no
-        time axis), where full-stream tenants refuse them.
+        Entries may also carry event time for windowed tenants — either
+        ``(tenant, rows, ts)`` triples or ``(tenant, TimedRows(rows, ts))``
+        pairs; timed batches always take the serial per-tenant path (the
+        packed launch has no time axis), in order, and a late one is shed
+        into the ``late_rows`` counter while the rest of its wave proceeds.
 
         With ``packed=True`` (the default) the batches are regrouped into
         waves — wave ``i`` holds each tenant's ``i``-th batch — and every
@@ -921,7 +1106,13 @@ class StreamingPipeline:
         are pumped once per wave rather than once per batch.
         ``packed=False`` is the strict one-``ingest``-per-batch loop.
         """
-        batches = [tuple(b) if len(b) == 3 else (b[0], b[1], None) for b in batches]
+        batches = [
+            (b[0], b[1].rows if isinstance(b[1], TimedRows) else b[1], float(b[2]))
+            if len(b) == 3
+            else (b[0], b[1].rows, b[1].ts) if isinstance(b[1], TimedRows)
+            else (b[0], b[1], None)
+            for b in (tuple(b) for b in batches)
+        ]
         if not packed:
             return sum(self.ingest(tenant, rows, ts) is not None for tenant, rows, ts in batches)
         per_tenant: dict[str, list] = {}
@@ -983,7 +1174,13 @@ class StreamingPipeline:
                 for name, t, _ in members:
                     snaps.append(self._post_ingest(name, t))
             for name, t, rows, ts in serial:
-                t.adapter.ingest(rows, ts=ts)
+                try:
+                    t.adapter.ingest(rows, ts=ts)
+                except LateRowError as e:
+                    # Shed, not dropped: the late batch is counted and the
+                    # rest of the wave proceeds (serial ingest re-raises).
+                    m["late_rows"].inc(e.n_rows)
+                    continue
                 m["serial_steps"].inc()
                 m["batches"].inc()
                 m["rows"].inc(self._batch_len(rows))
@@ -1002,12 +1199,20 @@ class StreamingPipeline:
         t.steps += 1
         t.steps_since_publish += 1
         t.metrics["lag"].set(t.steps_since_publish)
-        # Only pay for the mass estimate when the policy reads it.
+        if "window_lag" in t.metrics:
+            t.metrics["window_lag"].set(t.adapter.window_lag())
+        # Only pay for the mass estimate when the policy reads it (for
+        # matrix P3 it reduces the whole estimator matrix).
         live = t.adapter.live_mass() if t.policy.needs_live_frob else 0.0
+        policy_kw = {}
+        if getattr(t.policy, "needs_window_close", False):
+            wc = getattr(t.adapter, "windows_closed", None)
+            policy_kw["windows_closed"] = wc() if wc is not None else 0
         if t.policy.should_publish(
             steps_since_publish=t.steps_since_publish,
             live_frob=live,
             published_frob=t.published_frob,
+            **policy_kw,
         ):
             return self._publish(tenant, t)
         return None
@@ -1032,7 +1237,7 @@ class StreamingPipeline:
             t0 = self.obs.clock()
             snap = t.adapter.publish(
                 self.store, tenant, meta={"step": t.steps},
-                published_at=float(self.obs.clock()),
+                published_at=t.adapter.publish_time(self.obs.clock),
             )
             elapsed = self.obs.clock() - t0
         self._m_publish.inc()

@@ -45,7 +45,8 @@ engine's state as the reference's flattened leaves, the event engines'
 as their JSON-able ``state_dict``, so a payload taken from the reference
 restores here and vice versa.  The super-step engines also speak the
 packed-ingest contract (``pack_key`` / ``apply_packed``, a lazy ``state``);
-only the row-input kinds pack.  The windowed flavours are not ported yet.
+only the row-input kinds pack.  The windowed and decayed flavours of all
+four kinds (``runtime/windowed.py``) register here on import.
 """
 from __future__ import annotations
 
@@ -758,24 +759,41 @@ class _ShardCheckpointMixin:
         self._pack_slot = None
         self._epoch += 1
 
+    def _leaf_tags(self) -> list[str]:
+        """Each state leaf's checkpoint tag, in leaf order: ``"prng_key"`` for
+        the random keys (P3's ``rng``, stored as the reference stores its
+        PRNG keys' raw data: u32 words), ``"array"`` for every other."""
+        keyed = dist.PRNG_KEY_LEAVES.get(self._dist_key, ())
+        st = self.state
+        return [("prng_key" if name in keyed else "array")
+                for name, field in zip(type(st)._fields, st) for _ in _leaves(field)]
+
     def state_payload(self) -> tuple[dict[str, np.ndarray], dict]:
         """Flatten the protocol state into checkpoint leaves."""
-        leaves = _leaves(self.state)
-        arrays = {f"leaf_{i:03d}": leaf.cpu().numpy() for i, leaf in enumerate(leaves)}
-        return arrays, {"leaves": ["array"] * len(leaves), "rows_seen": self.rows_seen}
+        leaves, tags = _leaves(self.state), self._leaf_tags()
+        arrays = {
+            f"leaf_{i:03d}": (leaf.cpu().numpy().astype(np.uint32) if tag == "prng_key"
+                              else leaf.cpu().numpy())
+            for i, (leaf, tag) in enumerate(zip(leaves, tags))
+        }
+        return arrays, {"leaves": tags, "rows_seen": self.rows_seen}
 
     def restore_payload(self, arrays: dict[str, np.ndarray], meta: dict) -> None:
         """Restore a ``state_payload`` capture bit-identically."""
-        template = _leaves(self.state)
+        template, want = _leaves(self.state), self._leaf_tags()
         tags = list(meta["leaves"])
-        if len(tags) != len(template) or set(tags) != {"array"}:
+        if tags != want:
             raise ValueError(
                 f"checkpointed state has {len(tags)} leaves tagged {sorted(set(tags))}, "
-                f"expected {len(template)} array leaves (protocol/config mismatch?)"
+                f"expected {len(template)} leaves tagged {sorted(set(want))} "
+                "(protocol/config mismatch?)"
             )
         restored = []
-        for i, old in enumerate(template):
-            arr = torch.tensor(np.asarray(arrays[f"leaf_{i:03d}"]), device=self.device)
+        for i, (old, tag) in enumerate(zip(template, tags)):
+            arr = np.asarray(arrays[f"leaf_{i:03d}"])
+            if tag == "prng_key":  # u32 key words, held in int64
+                arr = arr.astype(np.uint32).astype(np.int64)
+            arr = torch.tensor(arr, device=self.device)
             if tuple(arr.shape) != tuple(old.shape):
                 raise ValueError(
                     f"checkpointed state leaf {i} has shape {tuple(arr.shape)}, "
@@ -824,9 +842,10 @@ class ShardProtocol(_ShardCheckpointMixin, SketchProtocol):
     """
 
     def __init__(self, name: str, *, m: int, d: int, eps: float = 0.1,
-                 l_site: int = 0, l_coord: int = 0, device=None):
+                 l_site: int = 0, l_coord: int = 0, s: int = 0, device=None):
         super().__init__(name, "shard", m, eps, d, device)
-        self.cfg = dist.ProtocolConfig(eps=eps, m=m, d=d, l_site=l_site, l_coord=l_coord).resolved()
+        self.cfg = dist.ProtocolConfig(eps=eps, m=m, d=d, l_site=l_site, l_coord=l_coord,
+                                       s=s).resolved()
         self._dist_key = name
         self.state, self._step = dist.make_protocol_runner(name, self.cfg, self.device)
         self._cached_matrix: np.ndarray | None = None
@@ -848,7 +867,9 @@ class ShardProtocol(_ShardCheckpointMixin, SketchProtocol):
 
     def frob_estimate(self) -> float:
         """Coordinator estimate of ``||A||_F^2``."""
-        return dist.protocol_frob(self.name, self.state)
+        # P1/P2 read f_hat; P3 reduces its estimator matrix, the host copy
+        # if this super-step already made one, else on the device.
+        return dist.protocol_frob(self.name, self.state, matrix=self._cached_matrix)
 
     def comm_report(self) -> CommReport:
         """Messages spent so far, in the paper's units."""
@@ -1033,11 +1054,12 @@ for _name, _cls in event.MATRIX_STREAMS.items():
         description=f"event-driven matrix {_name} (paper Section 5)",
     ))
 
-for _name in ("P1", "P2"):
+for _name in ("P1", "P2", "P3"):
     register_protocol(ProtocolSpec(
         name=_name,
         engine="shard",
         factory=_factory(ShardProtocol, _name),
+        err_factor=1.5 if _name == "P3" else 1.0,
         description=f"super-step matrix {_name}, sites on a tensor axis",
     ))
 
@@ -1111,3 +1133,8 @@ register_protocol(ProtocolSpec(
     description="super-step leverage-score row sampling P1 "
                 "(threshold forwarding + FD residual), sites on a tensor axis",
 ))
+
+# Time-restricted tracking: sliding-window + exponential-decay wrappers
+# register their (kind, engine, name) specs on import (all four kinds,
+# both engines).  Imported last so every ABC above is fully defined.
+from repro_torch.runtime import windowed as _windowed  # noqa: E402,F401

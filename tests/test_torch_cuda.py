@@ -78,6 +78,8 @@ def _on_card(shape, gen, misaligned):
     (2, 600, 300, 1024, False),  # 15 L tiles, more than one cluster of 8 holds
     (2, 64, 1, 128, False),  # one direction
     (1, 200, 1024, 1024, True),  # the serving shape, 4 bytes off alignment
+    (1, 9782, 1024, 1024, False),  # P3's served matrix at eps 0.02: 245 L tiles
+    (2, 9782, 300, 131, True),  # tall and ragged, on offset views
 ])
 def test_cuda_quadform_matches_plain(t, l, n, d, misaligned):
     """``quadform_packed`` and ``quadform`` on the card against their plain

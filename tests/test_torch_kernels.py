@@ -169,7 +169,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "runtime/pipeline.py", "runtime/policies.py", "models/attention.py",
             "models/transformer.py", "serve/engine.py", "configs/registry.py",
             "ckpt/checkpoint.py", "runtime/ingest_packed.py", "core/hh.py",
-            "core/quantiles.py"} <= scanned
+            "core/quantiles.py", "core/sampling.py", "core/windows.py",
+            "runtime/windowed.py"} <= scanned
     bad = {
         f"{f.relative_to(REPO)}: {name}"
         for f in files

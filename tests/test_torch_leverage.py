@@ -375,7 +375,9 @@ def test_pipeline_refuses_what_is_not_ported():
     pipe.publish("lev")
     with pytest.raises(ValueError, match=r"\[mode, x\]"):
         pipe.submit("lev", np.ones(D))
-    with pytest.raises(NotImplementedError, match="open item 10"):
+    # Windowed tenants are ported; like the reference's, a windowed matrix
+    # tenant needs its d.
+    with pytest.raises(ValueError, match="windowed matrix tenants need d"):
         pipe.add_windowed_tenant("w")
     # The heavy-hitter and quantile reads refuse a leverage tenant, as the
     # reference's do.

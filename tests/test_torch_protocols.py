@@ -25,8 +25,10 @@ from test_torch_leverage import spiky_stream
 
 from repro.core import distributed as jdist
 from repro.runtime.registry import create_protocol as ref_create
+from repro.runtime.registry import get_spec as ref_get_spec
+from repro.runtime.registry import protocol_names as ref_names
 from repro_torch.core import distributed as tdist
-from repro_torch.runtime import create_protocol, protocol_names
+from repro_torch.runtime import create_protocol, get_spec, protocol_names
 
 D, EPS, L_SITE, L_COORD, BATCH = 24, 0.2, 6, 8, 64
 
@@ -166,9 +168,18 @@ def test_config_and_registry_surface():
     ref = jdist.ProtocolConfig(eps=0.03, m=4, d=16).resolved()
     for field in ("l_site", "l_coord", "s", "k", "q_cap", "lev_cap"):
         assert getattr(port, field) == getattr(ref, field), field
-    assert protocol_names(engine="shard") == ["P1", "P2"]
-    with pytest.raises(KeyError, match="registered"):
-        create_protocol("P3", engine="shard", m=1, d=4, device="cpu")
+    # The port registers exactly the reference's specs, with the same
+    # err_factors, shard P3 and the 16 windowed specs included.
+    for kind in ("matrix", "hh", "quantile", "leverage"):
+        for engine in ("event", "shard"):
+            assert protocol_names(engine=engine, kind=kind) == ref_names(engine=engine, kind=kind)
+            for name in ref_names(engine=engine, kind=kind):
+                assert (get_spec(name, engine, kind).err_factor
+                        == ref_get_spec(name, engine, kind).err_factor), (kind, engine, name)
+    assert "P3" in protocol_names(engine="shard", kind="matrix")
+    p3 = create_protocol("P3", engine="shard", m=1, d=4, eps=0.5, device="cpu")
+    p3.step(np.ones((3, 4), np.float32))
+    assert p3.matrix().shape == (jdist.ProtocolConfig(eps=0.5, m=1, d=4).resolved().s + 1, 4)
     p = create_protocol("P2", engine="shard", m=2, d=4, device="cpu")
     with pytest.raises(ValueError, match="super-step wants"):
         p.step(np.zeros((3, 4), np.float32))  # 3 rows do not split over 2 sites
