@@ -157,11 +157,43 @@ the CUDA toolkit:
    bit-identical, and one more batch into both.  ``fd_gram``,
    ``fd_project``, ``levscore``, ``mg_scan`` and ``quant_merge_pack`` are held
    against their plain versions at the path's shapes (the last two bit for
-   bit on recorded site inserts), and each tenant's serve fold is timed.
+   bit on recorded site inserts), and each tenant's serve fold is timed;
+14. after 13, path 7, the cluster (``repro_torch.cluster``): 4
+   ``PipelineCell``s of m = 8 sites (eps = 0.02) behind a ``ClusterRouter``;
+   8 P2 matrix tenants (4,096 to 1,024 rows a wave of 3's stream), 2
+   leverage P1 tenants (2,048), HH super-step P1 tenants at eps 0.01 and
+   0.001 (``mg_scan``'s two routes) on path 5's Zipf stream and quantile
+   super-step P1 tenants at eps 0.02 and 0.01 (the second's ``quant_fold``
+   above 48 KB of shared memory) on its lognormal stream, named so that the
+   ring spreads them over all four cells (checked before anything runs).
+   3 waves into a bare pipeline (packed), into the cluster with a thread a
+   cell (``ingest_many(parallel=True)``) and into a cluster of the same cell
+   names without threads: rows/s of each; parallel against sequential bit for
+   bit (states and answers); the cluster against the bare pipeline with
+   steps, rows, versions, ``n_seen``, ``CommReport`` totals, error bounds
+   and HH and quantile answers exact, matrix and leverage subspace answers
+   within 1e-5 ``||A_t||_F^2`` and score answers within rtol 1e-3, atol
+   1e-5 (the kernels' splits follow the pack: ROADMAP.md §3);
+   one ``router.query_batch`` fan-out (one ``query_packed`` a cell, whose
+   ``quadform_packed`` launches are counted), timed over 21 calls and held
+   to the truth as paths 3-5 are; ``scale_to`` 5 cells (the moved tenants'
+   state bit for bit, versions kept), one more wave into the cluster (device
+   busy over it, ``torch.profiler``) and the bare pipeline; a
+   ``ServingReplica`` on the card (read-through,
+   ``versions_behind``, ``max_versions_behind`` enforced); then two
+   transported routers of 2 cells (no faults, and ``FaultPlan.seeded`` at
+   the reference test's rates) fed 160 messages of 512 rows or 2,000 items,
+   a windowed ``P2win`` tenant among them: the faults fire, every send is
+   accounted for, states and answers are the same bytes; 48 more messages
+   carry a checkpoint, a crash, parked batches, a degraded answer through
+   the replica and ``recover_cell`` into a fresh cell, bit for bit against
+   the uninterrupted router.  Its first route-2 ``mg_scan`` and its first
+   ``quant_fold`` above 48 KB are recorded and held bit for bit against the
+   plain loops.
 
 Launch counts are set to 0 just before each path (the P2 path, the
-pipeline, the packed pipeline, path 5, path 6, the serving run, the f32
-serving check) and read just after; the serial pipeline of 11 runs before its
+pipeline, the packed pipeline, path 5, path 6, path 7, the serving run, the
+f32 serving check) and read just after; the serial pipeline of 11 runs before its
 window.  Comparisons of a kernel with its plain version are made outside
 those windows.  It prints the card's name and
 power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
@@ -288,6 +320,40 @@ WIN_WINDOW, WIN_BUCKETS, WIN_LATENESS, WIN_HALF_LIFE = 16.0, 8, 2.0, 8.0
 WIN_SWAPS, WIN_LATE, WIN_LATE_AFTER, WIN_SAVE_AFTER = ((10, 11), (20, 21)), 5, 23, 16
 P6_KERNELS = ("fd_gram", "fd_project", "quadform", "levscore", "mg_scan", "quant_merge_pack")
 P3_PROFILED_STEPS = 4
+# Path 7, after path 6: the cluster.  CL_CELLS PipelineCells of M sites (eps
+# = EPS) on a HashRing behind a ClusterRouter.  The fleet: 8 P2 matrix tenants
+# (CL_MATRIX rows a wave, cut from path 3's stream), 2 leverage P1 tenants
+# (CL_LEV), HH super-step P1 tenants at eps 0.01 (k = 200: mg_scan's route 1)
+# and 0.001 (k = 2,000: route 2) on path 5's Zipf stream, quantile super-step
+# P1 tenants at eps 0.02 (q_cap 408) and 0.01 (q_cap 808, whose quant_fold
+# takes more than 48 KB of dynamic shared memory) on its lognormal stream,
+# CL_HH_ITEMS and CL_Q_ITEMS items a wave.  The names are chosen so that the
+# ring spreads the rows over all four cells, the HH pair and the quantile
+# pair sit on different cells and every cell holds two matrix tenants
+# (check_cluster_names).  CL_WAVES waves into each target, one more after
+# the rebalance.  Answers whose pack composition differs agree within CL_TOL
+# of the tenant's mass (PACK_TOL's bound).  The chaos routers (two cells)
+# hold CL_CHAOS's tenants, fed CL_CHAOS_MESSAGES messages of CL_CHAOS_ROWS
+# rows or CL_CHAOS_ITEMS items under FaultPlan.seeded(..., p_drop=0.15,
+# p_duplicate=0.1, p_delay=0.1) (tests/test_chaos.py:373), publishing every
+# CL_CHAOS_PUBLISH_EVERY steps, the windowed tenant on OnWindowClose over
+# WIN_WINDOW in CL_WIN_BUCKETS buckets; the replica's bound CL_STALENESS.  The
+# stream then goes on for CL_CHAOS_TAIL messages, across a crash-restart.
+CL_CELLS, CL_WAVES, CL_TOL = 4, 3, PACK_TOL
+CL_MATRIX = {"mat-2": 4096, "mat-6": 4096, "mat-0": 2048, "mat-5": 2048, "mat-8": 2048,
+             "mat-15": 1024, "mat-20": 1024, "mat-1": 1024}
+CL_LEV = {"lev-0": 2048, "lev-1": 2048}
+CL_HH, CL_Q = {"hh-f": 0.01, "hh-d": 0.001}, {"q-e": 0.02, "q-a": 0.01}
+CL_HH_ITEMS, CL_Q_ITEMS = 50_000, 12_000
+CL_CHAOS = {"mat-0": "matrix", "mat-2": "matrix", "lev-0": "leverage", "hh-0": "hh",
+            "q-0": "quantile", "win-0": "windowed"}
+CL_CHAOS_MESSAGES, CL_CHAOS_ROWS, CL_CHAOS_ITEMS, CL_CHAOS_SEED = 160, 512, 2000, 1
+CL_CHAOS_TAIL = 48
+CL_CHAOS_PUBLISH_EVERY, CL_WIN_BUCKETS, CL_STALENESS = 9, 4, 64
+P7_KERNELS = SHRINK_KERNELS + ("quadform", "quadform_packed", "levscore", "mg_scan",
+                               "quant_merge_pack", "quant_fold")
+# Dynamic shared memory a block may take before its kernel's limit is raised.
+SMEM_DEFAULT = 48 * 1024
 # A sequential kernel's chain bound: its dependent steps at about 30 cycles
 # each (a shared-memory round trip, or four dependent f32 additions, a
 # compare and a select) at the H100's 1.98 GHz boost clock.  A reckoning,
@@ -1761,11 +1827,6 @@ def hq_cases(torch, hq) -> list[dict]:
     chain bound counts the dependent steps of the longest row: items for
     ``mg_scan``; live tuples walked for the merges (in the fold, merge after
     merge, counted by stepping ``quant_merge_pack``)."""
-    from repro_torch.kernels import ops, ref
-
-    def live(x):
-        return torch.isfinite(x).sum(-1)
-
     cases = []
     args = hq["recorded"]["mg_scan"]
     check(args is not None, "path 5's first wave recorded no mg_scan call")
@@ -1775,9 +1836,23 @@ def hq_cases(torch, hq) -> list[dict]:
     cases.append(quant_merge_case(torch, args, "site inserts"))
     args = hq["recorded"]["quant_fold"]
     check(args is not None, "path 5's first wave recorded no quant_fold call")
+    cases.append(quant_fold_case(torch, args, "coordinator fold"))
+    return cases
+
+
+def quant_fold_case(torch, args, label: str) -> dict:
+    """``quant_fold`` on a recorded call's inputs (one coordinator), bit for
+    bit against the plain loop on CPU copies (host clock, 1 call) and
+    against its merges taken one ``quant_merge_pack`` launch at a time; its
+    chain bound is the live tuples walked, merge after merge."""
+    from repro_torch.kernels import ops, ref
+
+    def live(x):
+        return torch.isfinite(x).sum(-1)
+
     a, bb, two_eps, cap = args
     t, m, lb = bb[0].shape
-    check(t == 1, f"path 5's fold has one coordinator, got {t}")
+    check(t == 1, f"{label}: a fold of one coordinator, got {t}")
     # The fold's chain: each merge's live tuples, merge after merge.
     steps, state = 0, a
     for j in range(m):
@@ -1786,19 +1861,30 @@ def hq_cases(torch, hq) -> list[dict]:
         state = ops.quant_merge_pack(state, site, two_eps, cap)
     torch.cuda.synchronize()
     check(torch.equal(_flat(torch, state), _flat(torch, ops.quant_fold(*args))),
-          "the fold differs from its merges taken one launch at a time")
-    cases.append(dict(
+          f"{label}: the fold differs from its merges taken one launch at a time")
+    return dict(
         kernel="quant_fold",
-        shape=f"coordinator fold: (m={m}, cap={cap}; {steps} live tuples walked of "
-              f"{m * (cap + lb)})",
+        shape=f"{label}: (m={m}, cap={cap}; {steps} live tuples walked of {m * (cap + lb)}; "
+              f"{fold_smem(args) / 1024:.1f} KB of shared memory a block)",
         pallas=NO_PALLAS["quant_fold"], run=lambda a=args: _flat(torch, ops.quant_fold(*a)),
         time=lambda a=args: ops.quant_fold(*a),
         plain=lambda a=_cpu_args(args): _flat(torch, ref.ref_quant_fold(*a)), plain_on_cpu=True,
         plain_reps=1,
         library=None, exact=True, chain_steps=steps, on_path=True,
         flops=8.0 * steps, nbytes=4.0 * (8 * cap + 2 + m * (4 * lb + 1)),
-    ))
-    return cases
+    )
+
+
+def fold_smem(args) -> int:
+    """Bytes of dynamic shared memory a block of ``quant_fold`` takes on
+    these inputs: 0 where its rows' arrays go to scratch in device memory."""
+    from repro_torch.kernels import ops
+
+    a, bb, _, cap = args
+    dev, (t, la), lb = a[0].device, a[0].shape, bb[0].shape[-1]
+    if ops.QUANT_FOLD.query(dev, *ops.QUANT_SCRATCH, t, la, lb, cap):
+        return 0
+    return ops.QUANT_FOLD.query(dev, *ops.QUANT_SMEM, la, lb, cap)
 
 
 def drive_p3(torch, batches) -> dict:
@@ -2343,6 +2429,689 @@ def path6_cases(torch, p3, win) -> list[dict]:
     return cases
 
 
+def cluster_fleet() -> dict:
+    """Path 7's tenants: ``{name: (kind, rows or items a wave, eps)}``."""
+    fleet = {n: ("matrix", r, EPS) for n, r in CL_MATRIX.items()}
+    fleet.update({n: ("leverage", r, EPS) for n, r in CL_LEV.items()})
+    fleet.update({n: ("hh", CL_HH_ITEMS, e) for n, e in CL_HH.items()})
+    fleet.update({n: ("quantile", CL_Q_ITEMS, e) for n, e in CL_Q.items()})
+    return fleet
+
+
+def check_cluster_names() -> dict:
+    """Path 7's placement on the ring, checked before anything runs (the
+    ring is pure Python): the fleet spreads over at least three of the four
+    cells, the two HH and the two quantile tenants sit on different cells,
+    a cell holds two or more matrix tenants (its ``query_packed`` launches
+    ``quadform_packed``), growing to five cells moves a tenant, and the
+    chaos fleet's victim (the cell of its first matrix tenant) holds all
+    five kinds while the other cell holds a tenant too."""
+    from repro_torch.cluster import HashRing, rebalance_plan
+
+    cells = [f"cell-{i}" for i in range(CL_CELLS)]
+    ring = HashRing(cells)
+    place = {n: ring.place(n) for n in cluster_fleet()}
+    check(len(set(place.values())) >= 3, f"path 7's tenants land on fewer than 3 cells: {place}")
+    for group in (CL_HH, CL_Q):
+        check(len({place[n] for n in group}) == len(group), f"{list(group)} share a cell: {place}")
+    per_cell = [sum(place[n] == c for n in CL_MATRIX) for c in cells]
+    check(max(per_cell) >= 2, f"no cell holds two matrix tenants: {place}")
+    moves = rebalance_plan(ring, ring.with_cells(cells + [f"cell-{CL_CELLS}"]), place).moves
+    check(len(moves) >= 1, "growing path 7's ring to five cells moves no tenant")
+    chaos = HashRing(["cell-0", "cell-1"])
+    victim = chaos.place(next(iter(CL_CHAOS)))
+    on_victim = {CL_CHAOS[n] for n in CL_CHAOS if chaos.place(n) == victim}
+    elsewhere = [n for n in CL_CHAOS if chaos.place(n) != victim]
+    check(on_victim == set(CL_CHAOS.values()) and elsewhere,
+          f"the chaos victim {victim} does not hold all five kinds with a tenant elsewhere")
+    return place
+
+
+def cluster_cells(names):
+    """Fresh ``PipelineCell``s of M sites on the card, publishing on demand."""
+    from repro_torch.cluster import PipelineCell
+    from repro_torch.runtime import OnDemand
+
+    return [PipelineCell(n, M, device=DEV, eps=EPS, policy=OnDemand(), max_batch=8 * N_DIRS,
+                         default_deadline_s=3600.0) for n in names]
+
+
+def cluster_register(target) -> None:
+    """``cluster_fleet``'s tenants on a pipeline or a router, shard engines."""
+    for name, (kind, _, eps) in cluster_fleet().items():
+        if kind == "matrix":
+            target.add_tenant(name, D, protocol="P2")
+        elif kind == "leverage":
+            target.add_leverage_tenant(name, D, engine="shard")
+        elif kind == "hh":
+            target.add_hh_tenant(name, eps=eps, engine="shard")
+        else:
+            target.add_quantile_tenant(name, eps=eps, engine="shard")
+
+
+def cluster_waves(take, streams: dict, n: int) -> list:
+    """``n`` waves of ``[(tenant, batch), ...]``: matrix and leverage rows cut
+    from path 3's stream, HH (key, weight) and quantile (value, weight)
+    items cut in order from path 5's streams, as host pairs."""
+    waves, pos = [], {"hh": 0, "q": 0}
+    for _ in range(n):
+        wave = []
+        for name, (kind, size, _) in cluster_fleet().items():
+            if kind in ("matrix", "leverage"):
+                wave.append((name, take(size)))
+            else:
+                key = "hh" if kind == "hh" else "q"
+                a, w = streams[key]
+                i = pos[key]
+                pos[key] = i + size
+                wave.append((name, (a[i:i + size], w[i:i + size])))
+        waves.append(wave)
+    return waves
+
+
+def cluster_queries(torch, fed: dict, seed: int) -> dict:
+    """``router.query_batch``'s requests, one a tenant: N_DIRS unit
+    directions to each matrix tenant; N_DIRS subspace and N_DIRS score rows
+    to each leverage tenant; the true HQ_PHI-heavy keys of what an HH
+    tenant was fed and random ids; N_DIRS // 2 rank probes at fed values
+    and as many phi-quantile probes to each quantile tenant."""
+    import numpy as np
+
+    from repro_torch.core.hh import exact_heavy_hitters
+
+    rng = np.random.default_rng(seed + 71)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 72)
+    out = {}
+    for name, (kind, _, _) in cluster_fleet().items():
+        if kind == "matrix":
+            out[name] = unit_dirs(torch, gen, N_DIRS).cpu().numpy()
+        elif kind == "leverage":
+            out[name] = np.concatenate(
+                [np.concatenate([np.full((N_DIRS, 1), mode, np.float32),
+                                 unit_dirs(torch, gen, N_DIRS).cpu().numpy()], axis=1)
+                 for mode in (0.0, 1.0)])
+        elif kind == "hh":
+            heavy, _, _ = exact_heavy_hitters(*fed[name], HQ_PHI)
+            ids = np.concatenate([np.array(sorted(heavy), np.int64),
+                                  rng.integers(0, HH_KEYS, N_DIRS - len(heavy))])
+            out[name] = ids.astype(np.float32)[:, None]
+        else:
+            values = rng.choice(fed[name][0], N_DIRS // 2)
+            phis = rng.uniform(0.01, 0.99, N_DIRS - N_DIRS // 2).astype(np.float32)
+            out[name] = np.concatenate([np.stack([np.zeros_like(values), values], 1),
+                                        np.stack([np.ones_like(phis), phis], 1)]).astype(
+                                            np.float32)
+    return out
+
+
+def cluster_state(pipes: dict) -> dict:
+    """Every tenant's exported state leaves (host arrays), steps, rows,
+    latest version and ``CommReport`` total; ``pipes`` maps each tenant to
+    the pipeline that owns it."""
+    out = {}
+    for name, pipe in pipes.items():
+        st = pipe.stats(name)
+        out[name] = dict(arrays=pipe.export_tenant(name)["arrays"], steps=st.steps, rows=st.rows,
+                         version=st.latest_version,
+                         comm=pipe.tracker(name).comm_report().as_dict()["total"])
+    return out
+
+
+def cluster_results(results) -> dict:
+    """``query_batch`` results as ``{tenant: (version, error_bound, estimates)}``."""
+    import numpy as np
+
+    return {r.tenant: (r.version, r.error_bound, np.asarray(r.estimates)) for r in results}
+
+
+def cluster_gaps(got: dict, want: dict, mass: dict, scores: dict | None = None) -> dict:
+    """Worst gap of each kind between two ``cluster_results``: matrix
+    answers and leverage subspace answers over the tenant's
+    ``||A_t||_F^2``; leverage score answers (the rows ``scores[name]``
+    marks) over ``SCORE_ATOL + SCORE_RTOL * |want|``; HH and quantile
+    answers and all versions as counts of differences; error bounds
+    relative; ``bitwise`` when every answer is the same bytes."""
+    import numpy as np
+
+    out = dict(answer=0.0, score=0.0, error_bound=0.0, versions_differ=0, exact_differ=0,
+               bitwise=True)
+    for name, (v, eb, est) in want.items():
+        gv, geb, gest = got[name]
+        out["versions_differ"] += gv != v
+        out["bitwise"] &= bool(np.array_equal(gest, est)) and geb == eb
+        out["error_bound"] = max(out["error_bound"], abs(geb - eb) / max(abs(eb), 1e-30))
+        if name in mass:
+            diff = np.abs(gest.astype(np.float64) - est)
+            score = (scores or {}).get(name, np.zeros(len(est), bool))
+            if score.any():
+                out["score"] = max(out["score"], float(
+                    (diff[score] / (SCORE_ATOL + SCORE_RTOL * np.abs(est[score]))).max()))
+            if not score.all():
+                out["answer"] = max(out["answer"], float(diff[~score].max()) / mass[name])
+        else:
+            out["exact_differ"] += not (np.array_equal(gest, est) and geb == eb)
+    return out
+
+
+def cluster_same_state(a: dict, b: dict, leaves: str = "") -> bool:
+    """Steps, rows, versions and ``CommReport`` totals equal for every
+    tenant, and every state leaf whose name holds ``leaves`` bit for bit
+    (``""``: all of them)."""
+    import numpy as np
+
+    for name, s in b.items():
+        g = a[name]
+        if (g["steps"], g["rows"], g["version"], g["comm"]) != (s["steps"], s["rows"],
+                                                                s["version"], s["comm"]):
+            return False
+        if g["arrays"].keys() != s["arrays"].keys() or not all(
+                np.array_equal(g["arrays"][k], v) for k, v in s["arrays"].items()
+                if leaves in k):
+            return False
+    return True
+
+
+def drive_cluster(torch, batches, seed: int) -> dict:
+    """Path 7: the cluster on the card (launch counts set to 0 by the caller).
+
+    1. CL_WAVES waves into a bare ``StreamingPipeline`` (``ingest_many``,
+       packed), then into a ``ClusterRouter`` of CL_CELLS cells with
+       ``parallel=True`` (a thread a cell) and into one of fresh cells of the
+       same names with ``parallel=False``, on the synchronised host clock.
+    2. Publish every tenant; one ``router.query_batch`` fan-out (each cell's
+       one ``query_packed`` counted), timed over 21 calls.
+    3. ``scale_to`` CL_CELLS + 1 cells, the moved tenants' state before and
+       after, one more wave into the cluster (a thread a cell, under
+       ``torch.profiler``) and the bare pipeline.
+    4. A ``ServingReplica`` on the router: read-through, ``versions_behind``
+       after one more publish, ``max_versions_behind`` enforced.
+    5. Chaos and recovery (``drive_chaos``)."""
+    import numpy as np
+
+    from repro_torch.cluster import ClusterRouter, ServingReplica, StalenessExceededError
+    from repro_torch.kernels import ops
+    from repro_torch.query import PackedRequest
+    from repro_torch.runtime import OnDemand, StreamingPipeline
+
+    t_phase = time.perf_counter()
+    fleet = cluster_fleet()
+    names = [f"cell-{i}" for i in range(CL_CELLS)]
+    streams = hq_streams(seed)
+    take = stream_cutter(batches)
+    waves = cluster_waves(take, streams, CL_WAVES + 1)
+    tail = waves.pop()
+    fed: dict = {n: [] for n in fleet}
+    for wave in waves:
+        for name, batch in wave:
+            fed[name].append(batch)
+    mass, ata = {}, {}
+    for name, (kind, _, _) in fleet.items():
+        if kind in ("matrix", "leverage"):
+            rows = torch.cat(fed[name]).double()
+            ata[name] = rows.T @ rows
+            mass[name] = float(torch.diagonal(ata[name]).sum())
+        else:
+            fed[name] = tuple(np.concatenate(a) for a in zip(*fed[name]))
+    queries = cluster_queries(torch, fed, seed)
+    rows_a_wave = sum(s for k, s, _ in fleet.values() if k in ("matrix", "leverage"))
+    items_a_wave = sum(s for k, s, _ in fleet.values() if k in ("hh", "quantile"))
+
+    def run(ingest) -> dict:
+        """Every wave on the synchronised host clock."""
+        secs = []
+        torch.cuda.synchronize()
+        for wave in waves:
+            t0 = time.perf_counter()
+            ingest(wave)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return dict(wave_s=secs, rows_per_s=sorted(rows_a_wave / s for s in secs))
+
+    bare = StreamingPipeline(M, eps=EPS, policy=OnDemand(), max_batch=8 * N_DIRS,
+                             default_deadline_s=3600.0, device=DEV)
+    cluster_register(bare)
+    timing = {"bare": run(lambda w: bare.ingest_many(w, packed=True))}
+    routers = {}
+    for mode, parallel in (("parallel", True), ("sequential", False)):
+        routers[mode] = ClusterRouter(cluster_cells(names))
+        cluster_register(routers[mode])
+        timing[mode] = run(lambda w, r=routers[mode], p=parallel: r.ingest_many(w, parallel=p))
+    router = routers["parallel"]
+    t_rest = time.perf_counter()
+    for name in fleet:
+        bare.publish(name)
+        for r in routers.values():
+            r.cell_for(name).pipeline.publish(name)
+    heavy = {n: {int(k) for k in router.cell_for(n).pipeline.heavy_hitters(n, HQ_PHI)}
+             for n in CL_HH}
+    snaps = {n: router.cell_for(n).store.get(n) for n in fleet}  # what the fan-out serves
+    states = {mode: cluster_state({n: r.cell_for(n).pipeline for n in fleet})
+              for mode, r in routers.items()}
+    states["bare"] = cluster_state({n: bare for n in fleet})
+    requests = [(n, queries[n]) for n in fleet]
+
+    # The fan-out: one query_packed a cell, counted on each cell's engine.
+    calls = {n: 0 for n in names}
+    for n in names:
+        eng = router.cell(n).engine
+        real = eng.query_packed
+
+        def counted(reqs, n=n, real=real):
+            calls[n] += 1
+            return real(reqs)
+        eng.query_packed = counted
+    before = ops.launch_counts()
+    fanout = cluster_results(router.query_batch(requests))
+    fanout_launches = _delta(ops.launch_counts(), before)
+    for n in names:
+        del router.cell(n).engine.query_packed
+    answers = {"parallel": fanout,
+               "sequential": cluster_results(routers["sequential"].query_batch(requests)),
+               "bare": cluster_results(bare.engine.query_packed(
+                   [PackedRequest(n, q) for n, q in requests]))}
+    latency = time_calls({"query_batch fan-out": (sum(len(q) for q in queries.values()),
+                                                  lambda: router.query_batch(requests))})
+    placement = router.placement()
+
+    # Rebalance to one more cell, then one more wave into the cluster and the bare pipeline.
+    plan_moves = router.plan_scale_to(names + [f"cell-{CL_CELLS}"]).moves
+    moved_before = {m.tenant: states["parallel"][m.tenant] for m in plan_moves}
+    grown = [router.cell(n) for n in names] + cluster_cells([f"cell-{CL_CELLS}"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = router.scale_to(grown)
+    torch.cuda.synchronize()
+    scale_s = time.perf_counter() - t0
+    moved_after = cluster_state({m.tenant: router.cell_for(m.tenant).pipeline
+                                 for m in plan.moves})
+    after_move = cluster_results(router.query_batch(requests))
+    tail_profile = profile_ingest(torch, lambda: router.ingest_many(tail, parallel=True), 1)
+    bare.ingest_many(tail, packed=True)
+    for name in fleet:
+        bare.publish(name)
+        router.cell_for(name).pipeline.publish(name)
+    tail_mass = dict(mass)
+    for name, batch in tail:
+        if name in tail_mass:
+            tail_mass[name] += float(batch.double().square().sum())
+    tail_answers = {"cluster": cluster_results(router.query_batch(requests)),
+                    "bare": cluster_results(bare.engine.query_packed(
+                        [PackedRequest(n, q) for n, q in requests]))}
+    tail_states = {"cluster": cluster_state({n: router.cell_for(n).pipeline for n in fleet}),
+                   "bare": cluster_state({n: bare for n in fleet})}
+
+    # A serving replica on the router, on the same card.
+    t = next(iter(CL_MATRIX))
+    x = queries[t]
+    replica = ServingReplica(router)
+    first = replica.query_batch(x, tenant=t)
+    owner = router.cell_for(t)
+    owner.pipeline.publish(t)
+    stale = replica.query_batch(x, tenant=t)
+    bounded = ServingReplica(router, max_versions_behind=0)
+    bounded.sync(t)
+    owner.pipeline.publish(t)
+    pinned = bounded.query_batch(x, tenant=t, version=bounded.synced_version(t))
+    try:
+        bounded.query_degraded(x, tenant=t)
+        raised = None
+    except StalenessExceededError as e:
+        raised = (e.behind, e.bound)
+    fresh = bounded.query_batch(x, tenant=t)
+    own = owner.engine.query_batch(x, tenant=t)
+    replica_out = dict(
+        device=str(replica.engine.device), read_throughs=replica.read_throughs,
+        first_behind=first.versions_behind, stale_behind=stale.versions_behind,
+        stale_version=stale.result.version, first_version=first.result.version,
+        stale_equal=bool(np.array_equal(stale.result.estimates, first.result.estimates)),
+        pinned_behind=pinned.versions_behind, raised=raised,
+        fresh_behind=fresh.versions_behind, fresh_version=fresh.result.version,
+        owner_version=owner.latest_version(t),
+        fresh_equal=bool(np.array_equal(fresh.result.estimates, own.estimates)))
+    rest_s = time.perf_counter() - t_rest
+
+    chaos = drive_chaos(torch, take, streams, seed)
+    torch.cuda.synchronize()
+    out = dict(timing=timing, tail_profile=tail_profile, states=states, answers=answers,
+               fanout_calls=calls, fanout_launches=fanout_launches, latency=latency,
+               placement=placement, moves=[tuple(m) for m in plan.moves],
+               planned=[tuple(m) for m in plan_moves], scale_s=scale_s,
+               moved_before=moved_before, moved_after=moved_after, after_move=after_move,
+               tail_answers=tail_answers, tail_states=tail_states, tail_mass=tail_mass,
+               replica=replica_out, chaos=chaos, mass=mass, ata=ata, heavy=heavy, fed=fed,
+               queries=queries, rows_a_wave=rows_a_wave, items_a_wave=items_a_wave, snaps=snaps,
+               route_launches={k.symbol: k.launches for k in ops.KERNELS["mg_scan"]},
+               rest_s=rest_s, phase_s=time.perf_counter() - t_phase)
+    for r in routers.values():
+        r.close()
+    bare.close()
+    return out
+
+
+def chaos_router(plan=None):
+    """A transported router of two fresh cells holding ``CL_CHAOS``'s
+    tenants; back-offs slept on an injected clock, so none costs wall time."""
+    from repro_torch.cluster import ClusterRouter, Transport
+    from repro_torch.runtime import EveryKSteps, OnWindowClose
+    from repro_torch.runtime.policies import RetryPolicy
+
+    clock = [0.0]
+
+    def sleep(s):
+        clock[0] += s
+
+    transport = Transport(plan=plan)
+    router = ClusterRouter(
+        cluster_cells(["cell-0", "cell-1"]), transport=transport,
+        retry=RetryPolicy(max_attempts=5, base_s=0.01, cap_s=0.04), breaker_threshold=2,
+        breaker_cooldown_s=0.0, staleness_bound=CL_STALENESS, clock=lambda: clock[0],
+        sleep=sleep)
+    every = EveryKSteps(CL_CHAOS_PUBLISH_EVERY)
+    for name, kind in CL_CHAOS.items():
+        if kind == "matrix":
+            router.add_tenant(name, D, protocol="P2", policy=every)
+        elif kind == "leverage":
+            router.add_leverage_tenant(name, D, engine="shard", policy=every)
+        elif kind == "hh":
+            router.add_hh_tenant(name, eps=HQ_EPS, engine="shard", policy=every)
+        elif kind == "quantile":
+            router.add_quantile_tenant(name, eps=HQ_EPS, engine="shard", policy=every)
+        else:
+            router.add_windowed_tenant(name, kind="matrix", d=D, protocol="P2win",
+                                       engine="shard", window=WIN_WINDOW, buckets=CL_WIN_BUCKETS,
+                                       policy=OnWindowClose())
+    return router, transport
+
+
+def chaos_settle(router, transport, past: int = 0) -> None:
+    """Heartbeat until every cell is healthy, the replay queues are drained
+    and the transport has used ``past`` message indices."""
+    for _ in range(200):
+        hb = router.heartbeat_all()
+        pending = sum(v["replay_pending"] for k, v in router.stats().items() if k != "_resilience")
+        if all(s == "ok" for s in hb.values()) and pending == 0 and transport.sends >= past:
+            return
+    fail(f"path 7: the chaos cluster did not settle: {hb}, {pending} batches pending")
+
+
+def drive_chaos(torch, take, streams: dict, seed: int) -> dict:
+    """Path 7's transported routers: CL_CHAOS_MESSAGES messages (CL_CHAOS_ROWS
+    rows or CL_CHAOS_ITEMS items, the windowed tenant's with its event time)
+    into a fault-free router and one under ``FaultPlan.seeded``, compared once
+    both have settled.  The stream then goes on for CL_CHAOS_TAIL messages
+    into both: the chaos router checkpoints the victim cell, takes half of
+    them, loses the cell, parks the rest for replay, serves a degraded query
+    through its replica and recovers the cell into a fresh one from the
+    checkpoint; the fault-free router is the uninterrupted run."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.cluster import FaultPlan, PipelineCell
+    from repro_torch.runtime import OnDemand
+
+    kinds = list(CL_CHAOS.items())
+    off = {"hh": HH_ITEMS // 2, "q": Q_ITEMS // 2}
+    script = []
+    for i in range(CL_CHAOS_MESSAGES + CL_CHAOS_TAIL):
+        name, kind = kinds[i % len(kinds)]
+        ts = float(i // len(kinds)) if kind == "windowed" else None
+        if kind in ("hh", "quantile"):
+            key = "hh" if kind == "hh" else "q"
+            a, w = streams[key]
+            j = off[key]
+            off[key] = j + CL_CHAOS_ITEMS
+            script.append((name, (a[j:j + CL_CHAOS_ITEMS], w[j:j + CL_CHAOS_ITEMS]), ts))
+        else:
+            script.append((name, take(CL_CHAOS_ROWS), ts))
+    script, tail = script[:CL_CHAOS_MESSAGES], script[CL_CHAOS_MESSAGES:]
+    rng = np.random.default_rng(seed + 81)
+    x = rng.normal(size=(N_DIRS, D)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    ids = rng.integers(0, HH_KEYS, N_DIRS).astype(np.float32)[:, None]
+    probes = np.stack([np.ones(N_DIRS, np.float32),
+                       rng.uniform(0.01, 0.99, N_DIRS).astype(np.float32)], 1)
+    lev = np.concatenate([np.concatenate([np.full((N_DIRS // 2, 1), mode, np.float32),
+                                          x[: N_DIRS // 2]], 1) for mode in (0.0, 1.0)])
+    queries = [(n, {"matrix": x, "windowed": x, "leverage": lev, "hh": ids,
+                    "quantile": probes}[k]) for n, k in kinds]
+
+    def feed(router, part):
+        for name, rows, ts in part:
+            router.ingest(name, rows, ts=ts)
+
+    def state(router):
+        return cluster_state({n: router.cell_for(n).pipeline for n in CL_CHAOS})
+
+    t0 = time.perf_counter()
+    ref, ref_t = chaos_router()
+    feed(ref, script)
+    chaos_settle(ref, ref_t)
+    plan = FaultPlan.seeded(seed + CL_CHAOS_SEED, CL_CHAOS_MESSAGES, p_drop=0.15,
+                            p_duplicate=0.1, p_delay=0.1)
+    cha, cha_t = chaos_router(plan)
+    feed(cha, script)
+    while cha_t.sends < CL_CHAOS_MESSAGES:
+        cha.heartbeat_all()
+    chaos_settle(cha, cha_t, past=CL_CHAOS_MESSAGES)
+    torch.cuda.synchronize()
+    chaos_s = time.perf_counter() - t0
+    ref_state, cha_state = state(ref), state(cha)
+    ref_ans = cluster_results(ref.query_batch(queries))
+    cha_ans = cluster_results(cha.query_batch(queries))
+    res = cha.stats()["_resilience"]
+    counters = dict(cha_t.counters, sends=cha_t.sends)
+    accounted = all(
+        t_.sends == sum(t_.counters[k] for k in ("delivered", "dropped", "delayed", "crashed",
+                                                 "down")) for t_ in (ref_t, cha_t))
+    late = sum(r.cell_for(n).pipeline.stats()["late_rows"] for r in (ref, cha) for n in CL_CHAOS)
+
+    # The stream goes on: the uninterrupted run, and a crash-restart mid-stream.
+    feed(ref, tail)
+    chaos_settle(ref, ref_t)
+    cha.heartbeat_all()  # the replica syncs before the outage
+    victim = cha.placement()[kinds[0][0]]
+    owned = sorted(n for n, c in cha.placement().items() if c == victim)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cha.checkpoint_cell(victim, tmp, step=1)
+        checkpoint_s = time.perf_counter() - t0
+        feed(cha, tail[: len(tail) // 2])
+        cha_t.crash(victim)
+        parked = 0
+        for name, rows, ts in tail[len(tail) // 2:]:
+            ack = cha.ingest(name, rows, ts=ts)
+            parked += name in owned and ack is None
+        degraded = cha.query_batch(queries)
+        degraded_log = list(cha.degraded_log)
+        fresh = PipelineCell(victim, M, device=DEV, eps=EPS, policy=OnDemand(),
+                             max_batch=8 * N_DIRS, default_deadline_s=3600.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reacked = cha.recover_cell(victim, fresh, tmp, step=1)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+    chaos_settle(cha, cha_t)
+    rec_state, rec_ans = state(cha), cluster_results(cha.query_batch(queries))
+    ref_state_after, ref_ans_after = state(ref), cluster_results(ref.query_batch(queries))
+    recoveries = cha.stats()["_resilience"]["recoveries"]
+    ref.close()
+    cha.close()
+    return dict(
+        messages=len(script), tail=len(tail), chaos_s=chaos_s, counters=counters,
+        resilience=res, accounted=accounted, late_rows=late,
+        state_equal=cluster_same_state(cha_state, ref_state),
+        answers_bitwise=cluster_gaps(cha_ans, ref_ans, {})["bitwise"],
+        victim=victim, owned=owned, parked=parked,
+        degraded=sum(r is not None for r in degraded), degraded_log=degraded_log,
+        reacked=reacked, recoveries=recoveries, checkpoint_s=checkpoint_s, recover_s=recover_s,
+        recovered_state_equal=cluster_same_state(rec_state, ref_state_after),
+        recovered_bitwise=cluster_gaps(rec_ans, ref_ans_after, {})["bitwise"])
+
+
+def check_cluster(torch, cl, launches: dict) -> dict:
+    """Path 7's checks: parallel against sequential waves bit for bit; the
+    cluster against the bare pipeline (counts, versions, HH and quantile
+    answers and error bounds exactly; matrix and leverage subspace answers
+    within CL_TOL of the tenant's mass, score answers within SCORE_RTOL and
+    SCORE_ATOL of each other: the kernels' splits follow the pack, ROADMAP
+    §3); answers against dense truth; the fan-out;
+    the rebalance; the replica; chaos and recovery; the launches."""
+    import numpy as np
+
+    from repro_torch.core.leverage import QUERY_SCORE, table_scores
+    from repro_torch.core.quantiles import exact_ranks
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import get_spec
+
+    st, ans = cl["states"], cl["answers"]
+    check(cluster_same_state(st["parallel"], st["sequential"]),
+          "path 7: parallel and sequential waves left different states")
+    # The leverage tenants' score rows, held apart from their subspace rows.
+    scores = {n: cl["queries"][n][:, 0] == QUERY_SCORE for n in CL_LEV}
+    par_seq = cluster_gaps(ans["parallel"], ans["sequential"], cl["mass"], scores)
+    check(par_seq["bitwise"], f"path 7: parallel and sequential answers differ: {par_seq}")
+    check(cluster_same_state(st["parallel"], st["bare"], leaves="n_seen"),
+          "path 7: the cluster's steps, rows, versions, CommReport totals or n_seen differ "
+          "from the bare pipeline's")
+    vs_bare = cluster_gaps(ans["parallel"], ans["bare"], cl["mass"], scores)
+    check(vs_bare["versions_differ"] == 0 and vs_bare["exact_differ"] == 0
+          and vs_bare["answer"] <= CL_TOL and vs_bare["score"] <= 1.0
+          and vs_bare["error_bound"] == 0,
+          f"path 7: cluster against bare pipeline {vs_bare} (limit {CL_TOL}, error bounds "
+          "exactly)")
+
+    # Answers against the truth.
+    truth_gap, score_bad = {}, 0
+    for name, (kind, _, eps) in cluster_fleet().items():
+        _, _, est = ans["parallel"][name]
+        q = cl["queries"][name]
+        check(bool(np.isfinite(est).all()) and est.shape == (q.shape[0],),
+              f"path 7: {name}'s answers are not finite of shape ({q.shape[0]},)")
+        if kind in ("matrix", "leverage"):
+            xs = q if kind == "matrix" else q[:N_DIRS, 1:]
+            xt = torch.tensor(xs, device=DEV, dtype=torch.float64)
+            truth = ((xt @ cl["ata"][name]) * xt).sum(1).cpu().numpy()
+            gap = float(np.abs(est[:N_DIRS] - truth).max()) / cl["mass"][name]
+            factor = (get_spec("P2", "shard", "matrix").err_factor if kind == "matrix"
+                      else LEV_ERR_FACTOR)
+            check(gap <= factor * EPS * (1 + 1e-5),
+                  f"path 7: {name} gap {gap:.3e} > {factor} eps ||A||_F^2")
+            truth_gap[name] = gap
+            if kind == "leverage":
+                snap = cl["snaps"][name]
+                oracle = table_scores(snap.matrix, q[N_DIRS:, 1:], float(snap.meta["lam"]))
+                got = est[N_DIRS:].astype(np.float64)
+                score_bad += int((np.abs(got - oracle) > SCORE_ATOL + SCORE_RTOL
+                                  * np.abs(oracle)).sum())
+        elif kind == "hh":
+            keys, w = cl["fed"][name]
+            truth = np.bincount(keys, weights=w, minlength=HH_KEYS)
+            w_total = float(w.sum())
+            factor = get_spec("P1", "shard", "hh").err_factor
+            gap = float(np.abs(est - truth[q[:, 0].astype(np.int64)]).max()) / w_total
+            check(gap <= factor * eps, f"path 7: {name} gap {gap:.3e} W > {factor} eps W")
+            heavy = {int(e) for e in np.nonzero(truth >= HQ_PHI * w_total)[0]}
+            found = cl["heavy"][name]
+            check(heavy <= found, f"path 7: {name} missed heavy keys {sorted(heavy - found)}")
+            truth_gap[name] = gap
+        else:
+            values, w = cl["fed"][name]
+            w_total = float(w.sum())
+            is_rank = q[:, 0] == 0.0
+            served = est.astype(np.float64)
+            rank_err = np.abs(served[is_rank] - exact_ranks(values, w, q[is_rank, 1])) / w_total
+            quant_err = np.abs(exact_ranks(values, w, served[~is_rank])
+                               - q[~is_rank, 1].astype(np.float64) * w_total) / w_total
+            gap = float(max(rank_err.max(), quant_err.max()))
+            factor = get_spec("P1", "shard", "quantile").err_factor
+            check(gap <= factor * eps, f"path 7: {name} worst rank error {gap:.3e} W > "
+                                       f"{factor} eps W")
+            truth_gap[name] = gap
+    check(score_bad == 0, f"path 7: {score_bad} leverage score answers off the f64 oracle")
+
+    # The fan-out: one query_packed a cell, quadform_packed in every cell
+    # that holds two matrix tenants.
+    check(all(v == 1 for v in cl["fanout_calls"].values()),
+          f"path 7: the fan-out made {cl['fanout_calls']} query_packed calls a cell")
+    packs = sum(sum(cl["placement"][n] == c for n in CL_MATRIX) >= 2
+                for c in cl["fanout_calls"])
+    check(cl["fanout_launches"]["quadform_packed"] == packs,
+          f"path 7: the fan-out launched quadform_packed "
+          f"{cl['fanout_launches']['quadform_packed']} times, {packs} cells pack")
+
+    # Rebalance: the planned moves, state carried bit for bit, versions kept.
+    check(cl["moves"] and cl["moves"] == cl["planned"],
+          f"path 7: scale_to moved {cl['moves']}, planned {cl['planned']}")
+    check(cluster_same_state(cl["moved_after"], cl["moved_before"]),
+          "path 7: a moved tenant's state differs after the move")
+    moved = cluster_gaps(cl["after_move"], ans["parallel"], cl["mass"], scores)
+    check(moved["versions_differ"] == 0 and moved["exact_differ"] == 0
+          and moved["answer"] <= CL_TOL and moved["score"] <= 1.0 and moved["error_bound"] == 0,
+          f"path 7: answers after the move {moved}")
+    check(cluster_same_state(cl["tail_states"]["cluster"], cl["tail_states"]["bare"],
+                             leaves="n_seen"),
+          "path 7: after one more wave the cluster's counts differ from the bare pipeline's")
+    tail = cluster_gaps(cl["tail_answers"]["cluster"], cl["tail_answers"]["bare"],
+                        cl["tail_mass"], scores)
+    check(tail["versions_differ"] == 0 and tail["exact_differ"] == 0
+          and tail["answer"] <= CL_TOL and tail["score"] <= 1.0 and tail["error_bound"] == 0,
+          f"path 7: after one more wave, cluster against bare {tail}")
+
+    rp = cl["replica"]
+    check(rp["device"].startswith("cuda") and rp["read_throughs"] == 1
+          and rp["first_behind"] == 0 and rp["stale_behind"] == 1
+          and rp["stale_version"] == rp["first_version"] and rp["stale_equal"]
+          and rp["pinned_behind"] == 1 and rp["raised"] == (1, 0) and rp["fresh_behind"] == 0
+          and rp["fresh_version"] == rp["owner_version"] and rp["fresh_equal"],
+          f"path 7: the replica's read-through, staleness or bound failed: {rp}")
+
+    ch = cl["chaos"]
+    check(ch["counters"]["dropped"] + ch["counters"]["delayed"] > 0
+          and ch["counters"]["duplicate_deliveries"] > 0, f"path 7: no fault fired: {ch}")
+    check(ch["accounted"] and ch["resilience"]["attempts"]
+          == ch["resilience"]["messages"] + ch["resilience"]["retries"] == ch["counters"]["sends"],
+          f"path 7: a send is unaccounted for: {ch['counters']}, {ch['resilience']}")
+    check(ch["state_equal"] and ch["answers_bitwise"] and ch["late_rows"] == 0,
+          "path 7: the chaos run's state or answers differ from the fault-free run's")
+    check(ch["parked"] > 0 and ch["degraded"] == len(CL_CHAOS) and ch["degraded_log"]
+          and all(b <= CL_STALENESS for _, b in ch["degraded_log"]),
+          f"path 7: the outage parked {ch['parked']} batches, degraded {ch['degraded_log']}")
+    check(ch["reacked"] > 0 and ch["recoveries"] == 1 and ch["recovered_state_equal"]
+          and ch["recovered_bitwise"],
+          "path 7: the recovered cell differs from the uninterrupted router")
+
+    for name in P7_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on path 7")
+    check(launches["flash_attention"] == 0, "path 7 launched flash_attention")
+    check(cl["route_launches"][ops.MG_SCAN.symbol] > 0
+          and cl["route_launches"][ops.MG_SCAN_SHARED.symbol] > 0,
+          f"path 7 did not take both mg_scan routes: {cl['route_launches']}")
+    return dict(parallel_vs_sequential=par_seq, vs_bare=vs_bare, truth=truth_gap,
+                after_move=moved, after_tail=tail)
+
+
+def cluster_cases(torch, mg_args, fold_args) -> list[dict]:
+    """Path 7's sequential kernels on the inputs its first calls of their
+    shared-memory routes gave them: ``mg_scan`` route 2 (k > MG_REGISTER_SLOTS:
+    the eps-0.001 HH tenant's site scan) and ``quant_fold`` with more than
+    SMEM_DEFAULT of dynamic shared memory a block (the cap-808 quantile
+    tenant's coordinator), bit for bit against the plain loops on CPU copies.
+    Path 5's shapes stay the ones that stand for these kernels
+    (``on_path`` False), as path 6's do."""
+    from repro_torch.kernels import ops
+
+    check(mg_args is not None, "path 7 recorded no mg_scan call of route 2 (k > "
+                               f"{ops.MG_REGISTER_SLOTS})")
+    check(fold_args is not None,
+          f"path 7 recorded no quant_fold call above {SMEM_DEFAULT} B of shared memory")
+    cases = [mg_scan_case(torch, mg_args, "cluster hh-d site scan"),
+             quant_fold_case(torch, fold_args, "cluster q-a coordinator fold")]
+    for case in cases:
+        case["on_path"] = False
+    return cases
+
+
 def attention_pairs(s: int, window: int) -> int:
     """(query, key) pairs causal attention over s positions needs, with a window."""
     if window <= 0 or window >= s:
@@ -2603,6 +3372,8 @@ def main() -> int:
     from repro_torch.core.distributed import ProtocolConfig
     from repro_torch.kernels import _build, ops
 
+    cluster_placement = check_cluster_names()
+
     t0 = time.perf_counter()
     sources = sorted({k.source for ks in ops.KERNELS.values() for k in ks})
     ptxas = _build.build(sources)
@@ -2677,6 +3448,26 @@ def main() -> int:
     folds = win_folds(torch, win)
     cases += run_kernel_cases(torch, path6_cases(torch, p3, win))
     p6_s = time.perf_counter() - t_p6
+
+    # Path 7: the cluster: cells on a hash ring, a thread a cell, the fan-out,
+    # a rebalance, a replica, chaos and a crash-restart.
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_p7 = time.perf_counter()
+    # The first route-2 mg_scan (hh-d's site scan) and the first quant_fold
+    # above SMEM_DEFAULT (q-a's coordinator) are recorded for the checks.
+    with _Recorder(ops, "mg_scan", lambda *a: a[0].shape[1] > ops.MG_REGISTER_SLOTS) as rec_mg, \
+            _Recorder(ops, "quant_fold", lambda *a: fold_smem(a) > SMEM_DEFAULT) as rec_fold:
+        cl = drive_cluster(torch, batches, args.seed)
+    torch.cuda.synchronize()
+    p7_launches = ops.launch_counts()
+    p7_window_s = time.perf_counter() - t_p7
+    cl_checks = check_cluster(torch, cl, p7_launches)
+    cases += run_kernel_cases(torch, cluster_cases(torch, rec_mg.args, rec_fold.args))
+    p7_s = time.perf_counter() - t_p7
+    for key in ("ata", "fed", "queries", "states", "answers", "moved_before", "moved_after",
+                "after_move", "tail_answers", "tail_states", "snaps"):
+        del cl[key]
     del p3["tracker"], p3["quadform_args"], win["pipe"], win["streams"], win["recorded"]
     del batches, ata, lev_batches
     for key in ("serial", "packed"):
@@ -2769,6 +3560,26 @@ def main() -> int:
                      checks=win_checks),
         launches=p6_launches, window_s=p6_window_s, phase_s=p6_s,
     )
+    tm = cl["timing"]
+    summary["path7"] = dict(
+        cells=CL_CELLS, m=M, d=D, eps=EPS, waves=CL_WAVES, placement=cluster_placement,
+        rows_a_wave=cl["rows_a_wave"], items_a_wave=cl["items_a_wave"],
+        rows_per_s={k: dict(median=statistics.median(v["rows_per_s"]),
+                            slowest=v["rows_per_s"][0], fastest=v["rows_per_s"][-1])
+                    for k, v in tm.items()},
+        wave_s={k: v["wave_s"] for k, v in tm.items()},
+        profiled_wave={f: cl["tail_profile"][f]
+                       for f in ("wall_ms", "device_busy_ms", "device_busy_share",
+                                 "top_device_ms")},
+        fanout=dict(latency=cl["latency"], launches=cl["fanout_launches"],
+                    query_packed_calls=cl["fanout_calls"]),
+        rebalance=dict(moves=cl["moves"], scale_s=cl["scale_s"],
+                       s_a_moved_tenant=cl["scale_s"] / max(len(cl["moves"]), 1)),
+        replica=cl["replica"],
+        chaos={k: v for k, v in cl["chaos"].items() if k != "degraded_log"},
+        mg_scan_routes=cl["route_launches"], checks=cl_checks, launches=p7_launches,
+        window_s=p7_window_s, phase_s=p7_s, rest_s=cl["rest_s"],
+    )
     n_prompt, n_new = SERVE_BATCH * args.serve_prompt, SERVE_BATCH * (SERVE_GEN - 1)
     summary["serving_path"] = dict(
         arch=SERVE_ARCH, layers=srun["cfg"].n_layers, dtype=srun["cfg"].dtype,
@@ -2788,7 +3599,8 @@ def main() -> int:
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{main['source']}",
             replaces=PALLAS.get(name) or NO_PALLAS[name],
             launches=(run["launches"][name] + prun["launches"][name] + pk["launches"][name]
-                      + hq["launches"][name] + p6_launches[name] + srun["launches"][name]
+                      + hq["launches"][name] + p6_launches[name] + p7_launches[name]
+                      + srun["launches"][name]
                       + (f32_checks["flash_launches"] if name == "flash_attention" else 0)),
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
@@ -2948,6 +3760,55 @@ def main() -> int:
           f"published equal {ck['published_equal']}; after one more batch "
           f"{json.dumps(wc['tail_gap'])}, HH and quantile bit-identical; launches in the window "
           f"{json.dumps({k: p6['launches'][k] for k in P6_KERNELS})}")
+    p7 = summary["path7"]
+    rs = p7["rows_per_s"]
+    print(f"path 7 cluster ({card}): {CL_CELLS} cells of m = {M}, d = {D}, eps = {EPS}; "
+          f"{p7['rows_a_wave']} rows and {p7['items_a_wave']} HH and quantile items a wave; "
+          "rows/s at the median of the timed waves (slowest-fastest), synchronised host clock: "
+          + ", ".join(f"{k} {v['median']:.0f} ({v['slowest']:.0f}-{v['fastest']:.0f})"
+                      for k, v in rs.items())
+          + f"; parallel / sequential {rs['parallel']['median'] / rs['sequential']['median']:.3f}"
+          f", sequential / bare {rs['sequential']['median'] / rs['bare']['median']:.3f}")
+    pw7 = p7["profiled_wave"]
+    print(f"path 7 profile of the parallel wave after the rebalance ({CL_CELLS + 1} cells): "
+          f"wall {pw7['wall_ms']:.1f} ms, device busy "
+          f"{pw7['device_busy_ms']:.1f} ms ({pw7['device_busy_share']:.1%}); device ms "
+          f"{json.dumps({k[:60]: round(v, 2) for k, v in list(pw7['top_device_ms'].items())[:6]})}")
+    fl = p7["fanout"]["latency"]["query_batch fan-out"]
+    print(f"path 7 query_batch fan-out of {fl['directions']} queries over {fl['calls']} calls: "
+          f"{fl['directions'] / fl['qps_median'] * 1e3:.2f} ms median "
+          f"({fl['directions'] / fl['qps_fastest'] * 1e3:.2f}-"
+          f"{fl['directions'] / fl['qps_slowest'] * 1e3:.2f}); query_packed calls a cell "
+          f"{json.dumps(p7['fanout']['query_packed_calls'])}, launches "
+          f"{json.dumps({k: v for k, v in p7['fanout']['launches'].items() if v})}")
+    rb, ch = p7["rebalance"], p7["chaos"]
+    c7 = p7["checks"]
+    print(f"path 7 rebalance to {CL_CELLS + 1} cells: moves {rb['moves']}, scale_to "
+          f"{rb['scale_s']:.3f} s ({rb['s_a_moved_tenant']:.3f} s a moved tenant); answers "
+          f"after the move within {c7['after_move']['answer']:.3e} ||A_t||_F^2 (scores "
+          f"{c7['after_move']['score']:.3f} of their tolerance), after one more wave against "
+          f"the bare pipeline {c7['after_tail']['answer']:.3e} (scores "
+          f"{c7['after_tail']['score']:.3f}), error bounds equal")
+    print(f"path 7 parallel vs sequential: bit-identical {c7['parallel_vs_sequential']['bitwise']}"
+          f"; cluster vs bare pipeline: matrix and leverage subspace answers within "
+          f"{c7['vs_bare']['answer']:.3e} ||A_t||_F^2 (limit {CL_TOL}), leverage scores "
+          f"{c7['vs_bare']['score']:.3f} of their tolerance (rtol {SCORE_RTOL}, atol "
+          f"{SCORE_ATOL}), error bounds {c7['vs_bare']['error_bound']:.3e} relative (exactly "
+          "required), HH and quantile answers exact; "
+          f"against the truth {json.dumps({k: float(f'{v:.4g}') for k, v in c7['truth'].items()})}")
+    print(f"path 7 replica: {json.dumps(p7['replica'])}")
+    print(f"path 7 chaos: {ch['messages']} messages, {ch['chaos_s']:.1f} s for both routers; "
+          f"transport {json.dumps(ch['counters'])}; router "
+          + json.dumps({k: ch["resilience"][k] for k in ("messages", "attempts", "retries",
+                                                          "backoff_s", "unreachable")})
+          + f"; state equal {ch['state_equal']}, answers bit-identical {ch['answers_bitwise']}")
+    print(f"path 7 crash of {ch['victim']} ({', '.join(ch['owned'])}): checkpoint "
+          f"{ch['checkpoint_s']:.2f} s, {ch['parked']} batches parked, {ch['degraded']} answers "
+          f"degraded to the replica, recover_cell {ch['recover_s']:.2f} s ({ch['reacked']} "
+          f"batches replayed); state equal {ch['recovered_state_equal']}, answers bit-identical "
+          f"{ch['recovered_bitwise']}; window {p7['window_s']:.1f} s, phase {p7['phase_s']:.1f} s")
+    print(f"path 7 launches {json.dumps({k: p7['launches'][k] for k in P7_KERNELS})}, mg_scan "
+          f"routes {json.dumps(p7['mg_scan_routes'])}")
     sp = summary["serving_path"]
     print(f"serving {SERVE_ARCH}: {SERVE_BATCH} x {args.serve_prompt} prompt tokens, "
           f"{SERVE_GEN} new each: prefill tokens/s {sp['prefill_tokens_per_s']}, "

@@ -10,6 +10,9 @@ Core entry points:
     repro_torch.runtime  — protocol registry, the streaming pipeline and
                            its packed multi-tenant ingest
     repro_torch.ckpt     — checkpoints in the reference's format
+    repro_torch.cluster  — coordinator cells on a consistent-hash ring,
+                           the router, serving replicas and the
+                           fault-injecting transport
     repro_torch.kernels  — CUDA kernels, their wrappers and plain oracles
     repro_torch.models   — the decoder LM (serving path) and its configs
                            (``repro_torch.configs``)

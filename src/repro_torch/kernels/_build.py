@@ -13,6 +13,11 @@ given (PyTorch's current stream), allocates nothing, and returns
 ``cudaGetLastError()``; ``CudaKernel`` raises if that is not 0.  A source
 may also export a host function that launches nothing and answers an
 integer, such as the scratch a launch needs (``CudaKernel.query``).
+
+Threads may launch at once (the cluster drives each cell on a thread of
+its own, and ctypes lets go of the GIL during a call): a kernel is built
+and loaded once under a lock, each build writes a temporary file of its
+own thread, and launch counts rise under a lock.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -39,6 +45,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, on stderr
 )
+# Held while a kernel is built and loaded, and while a count rises.
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def library_path(source: str) -> Path:
@@ -85,7 +94,7 @@ def build(sources) -> dict[str, str]:
     jobs = []
     for source in pending:
         out = library_path(source)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((source, proc, tmp, out))
@@ -107,8 +116,8 @@ def build(sources) -> dict[str, str]:
 class CudaKernel:
     """One C entry point of one source, loaded at its first launch.
 
-    ``launches`` is a plain count, raised by one each time ``launch`` has
-    started the kernel on the card and nowhere else.
+    ``launches`` is a plain count, raised by one (under a lock) each time
+    ``launch`` has started the kernel on the card and nowhere else.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
@@ -122,12 +131,14 @@ class CudaKernel:
 
     def _entry(self):
         if self._fn is None:
-            build([self.source])
-            self._lib = ctypes.CDLL(str(library_path(self.source)))
-            fn = getattr(self._lib, self.symbol)
-            fn.argtypes = [*self.argtypes, ctypes.c_void_p]  # last: the stream
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            with _LOAD_LOCK:
+                if self._fn is None:
+                    build([self.source])
+                    self._lib = ctypes.CDLL(str(library_path(self.source)))
+                    fn = getattr(self._lib, self.symbol)
+                    fn.argtypes = [*self.argtypes, ctypes.c_void_p]  # last: the stream
+                    fn.restype = ctypes.c_int
+                    self._fn = fn
         return self._fn
 
     def launch(self, device: torch.device, *args) -> None:
@@ -137,7 +148,8 @@ class CudaKernel:
             rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} ({self.source}) failed to launch: CUDA error {rc}")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
 
     def query(self, device: torch.device, symbol: str, argtypes: list, *args) -> int:
         """Call ``symbol``, a host function of the same library that launches

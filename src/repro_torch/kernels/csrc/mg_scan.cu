@@ -298,8 +298,10 @@ extern "C" int mg_scan_shared_launch(const int* keys_in, const float* counts_in,
   if (k <= 0 || b < 0 || smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
+    // The kernel's maximum, never this launch's size: threads that launch at
+    // once then all set the same limit, and none lowers it under another.
     const cudaError_t err = cudaFuncSetAttribute(
-        mg_scan_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        mg_scan_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   mg_scan_shared_kernel<<<S, kWarp, smem, stream>>>(keys_in, counts_in, weight_in, shrink_in,

@@ -378,9 +378,11 @@ int launch(const Params& p, int T, cudaStream_t stream) {
   const size_t smem = row_floats(p.la, p.lb, p.cap) * sizeof(float);
   if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
+    // The kernel's maximum, never this launch's size: threads that launch at
+    // once then all set the same limit, and none lowers it under another.
     const cudaError_t err = cudaFuncSetAttribute(quant_fold_kernel<false>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
+                                                 static_cast<int>(kMaxDynamicSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   quant_fold_kernel<false><<<T, kThreads, smem, stream>>>(p);
@@ -395,6 +397,13 @@ extern "C" long long quant_merge_scratch_floats(int T, int la, int lb, int cap) 
   const size_t per_row = row_floats(la, lb, cap);
   if (per_row * sizeof(float) <= kMaxDynamicSmem) return 0;
   return static_cast<long long>(per_row) * T;
+}
+
+// Bytes of dynamic shared memory a block takes for one row's working arrays
+// where they fit (quant_merge_scratch_floats answers 0); above 48 KB the
+// launch raises the kernel's limit first.  Launches nothing.
+extern "C" long long quant_merge_smem_bytes(int la, int lb, int cap) {
+  return static_cast<long long>(row_floats(la, lb, cap) * sizeof(float));
 }
 
 // a_*: (T, la), a_w (T,); b_*: (T, lb), b_w (T,); out_*: (T, cap), out_w

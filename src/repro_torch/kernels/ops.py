@@ -121,6 +121,9 @@ QUANT_FOLD = CudaKernel("quant_merge.cu", "quant_fold_launch", [_P] * 16 + [_I] 
 # csrc/quant_merge.cu's answer to how many floats of scratch a launch needs
 # (0 where a row's merge fits in shared memory).
 QUANT_SCRATCH = ("quant_merge_scratch_floats", [_I, _I, _I, _I])
+# Its answer to how many bytes of dynamic shared memory a block takes for
+# one row's working arrays (la, lb, cap), where QUANT_SCRATCH answers 0.
+QUANT_SMEM = ("quant_merge_smem_bytes", [_I, _I, _I])
 
 # Every hand-written kernel of the port by name, one for each Pallas kernel
 # of the reference and one for each of its sequential loops, with its

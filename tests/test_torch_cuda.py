@@ -399,3 +399,71 @@ def test_cuda_quant_fold_matches_plain_bit_for_bit(m):
     torch.cuda.synchronize()
     assert ops.launch_counts()["quant_fold"] == before + 1
     _same_bits(got, ref.ref_quant_fold(coord, shipped, 0.01, cap))
+
+
+def _from_two_threads(calls, reps):
+    """Run each of two zero-argument calls ``reps`` times on a thread of its
+    own, both started together; return each thread's outputs."""
+    import threading
+
+    start = threading.Barrier(2)
+    outs = [[], []]
+
+    def run(i):
+        start.wait()
+        for _ in range(reps):
+            outs[i].append(calls[i]())
+        torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return outs
+
+
+def _fold_call(rng, cap, m):
+    """A fold of m summaries into one coordinator of ``cap`` slots, whose
+    block takes more than 48 KB of dynamic shared memory (no scratch)."""
+    coord = tuple(x[:1].cuda() for x in _q_summaries(rng, 1, cap, 4 * cap, 0.005))
+    shipped = tuple(x[None].cuda() for x in _q_summaries(rng, m, cap, 2 * cap, 0.0025))
+    dev, la, lb = coord[0].device, coord[0].shape[1], shipped[0].shape[-1]
+    assert ops.QUANT_FOLD.query(dev, *ops.QUANT_SCRATCH, 1, la, lb, cap) == 0
+    assert ops.QUANT_FOLD.query(dev, *ops.QUANT_SMEM, la, lb, cap) > 48 * 1024
+    return lambda: ops.quant_fold(coord, shipped, 0.01, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["mg_scan k=600,1000", "mg_scan k=7000,12000",
+                                  "quant_fold cap=600,808"])
+def test_cuda_launches_from_two_threads_match_serial(pair):
+    """Two threads launch at once, 200 times each, at two sizes (as two
+    cells of a cluster do): no launch error, every result bit-identical to
+    the same call made alone, and the launch counts exact.  ``mg_scan`` at k
+    = 7,000 and 12,000 and ``quant_fold`` at cap 600 and 808 (67 and 90 KB a
+    block) take their routes with more than 48 KB of dynamic shared memory,
+    whose limit each launch sets to the kernel's maximum.  Needs a CUDA
+    card and nvcc: ``pytest -m cuda`` there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    reps = 200
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rng = np.random.default_rng(11)
+    if pair.startswith("mg_scan"):
+        ks = [int(k) for k in pair.split("=")[1].split(",")]
+        args = [_mg_inputs(2, k, 300, gen) for k in ks]
+        calls = [lambda a=a: ops.mg_scan(*a) for a in args]
+        name = "mg_scan"
+    else:
+        calls = [_fold_call(rng, 600, 4), _fold_call(rng, 808, 4)]
+        name = "quant_fold"
+    alone = [call() for call in calls]
+    torch.cuda.synchronize()
+    before = ops.launch_counts()[name]
+    outs = _from_two_threads(calls, reps)
+    assert ops.launch_counts()[name] == before + 2 * reps
+    for want, got in zip(alone, outs):
+        for out in got:
+            for g, w in zip(out, want):
+                assert torch.equal(g, w)

@@ -170,7 +170,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "models/transformer.py", "serve/engine.py", "configs/registry.py",
             "ckpt/checkpoint.py", "runtime/ingest_packed.py", "core/hh.py",
             "core/quantiles.py", "core/sampling.py", "core/windows.py",
-            "runtime/windowed.py"} <= scanned
+            "runtime/windowed.py", "cluster/cell.py", "cluster/hashring.py",
+            "cluster/replica.py", "cluster/router.py", "cluster/transport.py"} <= scanned
     bad = {
         f"{f.relative_to(REPO)}: {name}"
         for f in files
