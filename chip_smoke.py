@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port's paths once on one GPU and check them.
 
     python3 chip_smoke.py [--seed 0] [--steps 64] [--lev-steps 16] [--serve-prompt 4096]
-                          [--out report.json]
+                          [--train-ckpt] [--out report.json]
 
 From the root of a checkout, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -189,11 +189,43 @@ the CUDA toolkit:
    the replica and ``recover_cell`` into a fresh cell, bit for bit against
    the uninterrupted router.  Its first route-2 ``mg_scan`` and its first
    ``quant_fold`` above 48 KB are recorded and held bit for bit against the
-   plain loops.
+   plain loops;
+15. after the serving phases, path 8, training (``repro_torch.train``):
+   Qwen3-0.6B at full width (28 layers, bf16, its own ``xla_chunked``
+   attention and per-block remat) takes 2 plain steps and 3 FD-compressed
+   steps over m = 4 shards of 2 x 512 tokens (``make_compressed_train_step``)
+   on one fixed random batch; the loss must fall over each run, the plain
+   step must launch no kernel, and each compressed step must launch the FD
+   kernels exactly as the leaves' shapes say (27,420 launches of each
+   batched kernel for the shards' stacked sketches, 40 of each single one
+   for the merges) and report the byte counts worked out on the host; the
+   last runs under ``torch.profiler`` (wall time, device busy, ``eigh``'s
+   host share).  ``fd_gram`` and ``fd_project`` are held against their
+   plain versions at (4, 32, d) and the merges' (1, 32, d), d = 1,024 /
+   2,048 / 3,072, on the inputs the first step gave them, beside
+   ``torch.bmm``.  The first step's own
+   ``compress_and_aggregate`` call, on the real gradients, must meet what
+   does not depend on the basis: ``mean_j(acc_j - new_r_j)`` of rank <= k
+   in every compressed leaf, ``ghat`` within one bf16 rounding of it; on
+   synthetic gradients at the leaves' shapes (rank 8 with a gap, plus
+   noise; a leaf of each shape but the embedding's) it is held card against CPU
+   copies (1e-4 of the largest entries, bytes equal); a 2-layer f32 copy
+   of the width holds the loss (1e-5) and
+   every gradient leaf (1e-4 of its largest) card against CPU; last,
+   ``launch.train.main`` at ``--reduced`` size with ``--compress-grads
+   --shards 4`` runs 2 steps into a checkpoint directory and restores step
+   2 for a third.  With ``--train-ckpt`` (off by default: it adds about a
+   quarter of an hour, more than the run's budget), the full-width state
+   after the compressed steps (bf16 parameters, f32 moments and the 4
+   shards' residuals, about 15.5 GB) is also saved through
+   ``ckpt.AsyncCheckpointer``, as ``launch.train`` saves it, and restored
+   with ``ckpt.restore``: the caller's stall, the write, the restore and the
+   bytes on disk are reported, and every restored leaf must equal its
+   original bit for bit.
 
 Launch counts are set to 0 just before each path (the P2 path, the
 pipeline, the packed pipeline, path 5, path 6, path 7, the serving run, the
-f32 serving check) and read just after; the serial pipeline of 11 runs before its
+f32 serving check, path 8's steps) and read just after; the serial pipeline of 11 runs before its
 window.  Comparisons of a kernel with its plain version are made outside
 those windows.  It prints the card's name and
 power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
@@ -203,6 +235,7 @@ without CUDA, or a directory without the package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -266,6 +299,22 @@ SASS_F32 = ("FFMA", "LDS", "LDS.128", "LDGSTS", "HMMA", "HGMMA")
 PIPELINE_KERNELS = SHRINK_KERNELS + ("quadform", "levscore")
 SERVE_ARCH, SERVE_BATCH, SERVE_GEN, SERVE_MAX_LEN = "qwen3-0.6b", 4, 32, 4224
 CHECK_PROMPT, CHECK_STEPS = 512, 8
+# Path 8, training: Qwen3-0.6B at full width, all its layers, bf16, its own
+# attn_impl ("xla_chunked": no flash backward exists) and remat ("block"):
+# TRAIN_PLAIN_STEPS plain and TRAIN_COMPRESSED_STEPS FD-compressed steps
+# over TRAIN_SHARDS shards on one fixed batch of TRAIN_ROWS x TRAIN_SEQ
+# random tokens (2 sequences a shard), AdamW at TRAIN_LR from the first step
+# (warmup 1).  The loss and its gradients are held card against CPU on a
+# TRAIN_CHECK_LAYERS-layer f32 copy of the width (LOSS_RTOL; each leaf
+# within GRAD_RTOL of its largest entry: f32 sums over up to 151,936
+# logits and 3,072 features in other orders), the compression on synthetic
+# gradients at the path's leaf shapes (GRAD_RTOL); a sketched leaf of ghat
+# must have sigma_(k+1) <= TRAIN_RANK_TOL sigma_1 (f32 products of rank k).
+TRAIN_ARCH = SERVE_ARCH
+TRAIN_SHARDS, TRAIN_ROWS, TRAIN_SEQ = 4, 8, 512
+TRAIN_PLAIN_STEPS, TRAIN_COMPRESSED_STEPS, TRAIN_ENTRY_STEPS = 2, 3, 2
+TRAIN_LR, TRAIN_CHECK_LAYERS = 1e-3, 2
+LOSS_RTOL, GRAD_RTOL, TRAIN_RANK_TOL = 1e-5, 1e-4, 1e-4
 # Path 4, packed ingest: each of two pipelines holds 8 P2 matrix tenants and
 # 2 leverage P1 tenants, fed these rows a wave (one 2048-row matrix tenant
 # cold for the first wave), PACK_WAVES waves of which the last
@@ -865,16 +914,18 @@ def raw_profile(prof) -> tuple[dict, dict, dict]:
     return dev, count, eigh
 
 
-def profile_ingest(torch, fn, steps: int) -> dict:
+def profile_ingest(torch, fn, steps: int, shapes: bool = True) -> dict:
     """``torch.profiler`` over ``fn()``, ``steps`` ingest steps or waves:
     device busy share, ``eigh``'s share of host time and calls by input
-    shape, and the shrink kernels' device time beside it."""
+    shape (``shapes``; without, under one key: the profiler's own time
+    halves, which matters over millions of events), and the shrink kernels'
+    device time beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t_call = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+                 record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3339,6 +3390,435 @@ def check_serving_f32(torch, seed: int) -> dict:
                                        if "flash_attention" in k})
 
 
+# ---------------------------------------------------------------------------
+# Path 8: training Qwen3-0.6B with FD-compressed gradients
+# ---------------------------------------------------------------------------
+
+
+def train_config(**changes):
+    """The training path's model: Qwen3-0.6B as configured (bf16, its own
+    ``attn_impl`` and ``remat``), with ``changes``."""
+    return serving_config(**changes)
+
+
+def compression_plan(params, ccfg, m: int) -> dict:
+    """What ``compress_and_aggregate`` must do with ``params``' leaves, worked
+    out from their shapes on the host: the l-row chunks each shard's stacked
+    sketch streams (one ``fd_gram`` and one ``fd_project`` launch of the
+    batched kernels each) and the merge's chunks (one launch of the single
+    kernels each), and the byte counts as the reference sums them (f32, in
+    leaf order)."""
+    import numpy as np
+
+    from repro_torch.tree import leaves
+
+    l, k = ccfg.sketch_rows, ccfg.rank
+    batched = single = 0
+    full = comp = np.float32(0.0)
+    sketched = []
+    for p in leaves(params):
+        size = p.numel()
+        if p.ndim < 2 or size < ccfg.min_size or p.shape[-1] < 2 * k:
+            full += np.float32(4.0 * size)
+            comp += np.float32(4.0 * size)
+            continue
+        d = p.shape[-1]
+        rows = size // d
+        batched += -(-rows // l)
+        single += -(-m * l // l)
+        full += np.float32(4.0 * size)
+        comp += np.float32(4.0 * (l * d + rows * k))
+        sketched.append((tuple(p.shape), rows, d))
+    return dict(fd_batched=batched, fd_single=single, full_bytes=float(full),
+                compressed_bytes=float(comp), ratio=float(full) / float(comp),
+                sketched=sketched)
+
+
+def _loss_now(torch, lm, params, batch) -> float:
+    with torch.no_grad():
+        return float(lm.loss(batch, params=params))
+
+
+def drive_training(torch, seed: int) -> dict:
+    """Path 8: Qwen3-0.6B at full width (all its layers, bf16), the launch
+    counts set to 0 first: TRAIN_PLAIN_STEPS plain steps, then
+    TRAIN_COMPRESSED_STEPS FD-compressed steps over TRAIN_SHARDS shards, on
+    one fixed batch of TRAIN_ROWS x TRAIN_SEQ random tokens, each step timed
+    on the synchronised host clock (the last under ``torch.profiler``), with
+    each compressed step's kernel launches.  The first compressed step
+    records the FD kernels' inputs at the (m, 2l, d) shapes it streams, and
+    its ``compress_and_aggregate`` call's operands and results, held to the
+    identities that do not depend on the basis right after it."""
+    import repro_torch.train.step as train_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.optim import FDCompressConfig
+    from repro_torch.train import (
+        TrainConfig,
+        init_train_state,
+        make_compressed_train_step,
+        make_train_step,
+    )
+
+    cfg = train_config()
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEV).manual_seed(seed + 9)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_ROWS, TRAIN_SEQ), device=DEV,
+                                     generator=gen)}
+    plain_cfg = TrainConfig(peak_lr=TRAIN_LR, warmup_steps=1, total_steps=100)
+    ccfg = FDCompressConfig()
+    comp_cfg = plain_cfg._replace(grad_compression=ccfg)
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_window = time.perf_counter()
+    state = init_train_state(lm, plain_cfg)
+    step = make_train_step(lm, plain_cfg)
+    plain = dict(losses=[], step_s=[])
+    for _ in range(TRAIN_PLAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        plain["step_s"].append(time.perf_counter() - t0)
+        plain["losses"].append(float(metrics["loss"]))
+    plain["loss_after"] = _loss_now(torch, lm, state.params, batch)
+    plain["launches"] = ops.launch_counts()
+    del state, step
+    torch.cuda.empty_cache()
+
+    state = init_train_state(lm, comp_cfg, TRAIN_SHARDS)
+    plan = compression_plan(state.params, ccfg, TRAIN_SHARDS)
+    step = make_compressed_train_step(lm, comp_cfg, TRAIN_SHARDS)
+    comp = dict(losses=[], step_s=[], launches=[], metrics=[])
+    widths = sorted({d for _, _, d in plan["sketched"]})
+    shape_of = lambda b, t: tuple(b.shape[:2]) == (t, 2 * ccfg.sketch_rows)  # noqa: E731
+    real_compress, seen = train_step.compress_and_aggregate, {}
+
+    def first_compress(grads, residuals, c):
+        out = real_compress(grads, residuals, c)
+        if not seen:
+            seen.update(grads=grads, residuals=residuals, ghat=out[0], new_r=out[1])
+        return out
+
+    recs, box, identities, prof = {}, {}, None, None
+    with contextlib.ExitStack() as stack:
+        # The shards' stacked sketches (T = m) and the merges (T = 1).
+        for d in widths:
+            for t in (TRAIN_SHARDS, 1):
+                recs[("fd_gram", t, d)] = stack.enter_context(_Recorder(
+                    ops, "fd_gram", lambda b, t=t, d=d: shape_of(b, t) and b.shape[2] == d))
+                recs[("fd_project", t, d)] = stack.enter_context(_Recorder(
+                    ops, "fd_project",
+                    lambda w, u, b, t=t, d=d: shape_of(b, t) and b.shape[2] == d))
+        train_step.compress_and_aggregate = first_compress
+        stack.callback(setattr, train_step, "compress_and_aggregate", real_compress)
+        for i in range(TRAIN_COMPRESSED_STEPS):
+            before = ops.launch_counts()
+            if i < TRAIN_COMPRESSED_STEPS - 1:
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                comp["step_s"].append(time.perf_counter() - t0)
+            else:  # the last step under the profiler
+                # About 5 M profiler events: no shapes (the eigh inputs are
+                # (4, 32, 32) and, in the merges, (1, 32, 32)).
+                prof = profile_ingest(torch, lambda: box.update(out=step(state, batch)), 1,
+                                      shapes=False)
+                state, metrics = box.pop("out")
+            comp["launches"].append(_delta(ops.launch_counts(), before))
+            comp["losses"].append(float(metrics["loss"]))
+            comp["metrics"].append({k: float(v) for k, v in metrics.items()})
+            if seen:  # outside the timed step: the first step's compression
+                identities = check_train_identities(torch, seen, plan, ccfg)
+                seen.clear()
+    comp["loss_after"] = _loss_now(torch, lm, state.params, batch)
+    launches = ops.launch_counts()
+    window_s = time.perf_counter() - t_window
+    return dict(cfg=cfg, lm=lm, batch=batch, ccfg=ccfg, plan=plan, state=state, plain=plain,
+                comp=comp, launches=launches, profile=prof, identities=identities,
+                init_s=init_s, window_s=window_s,
+                recorded={key: r.args for key, r in recs.items()})
+
+
+def _max_gap(a, b) -> tuple[float, float]:
+    """(max |a - b|, max |b|), both as floats."""
+    return float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+
+
+def check_train_identities(torch, seen: dict, plan: dict, ccfg) -> dict:
+    """The first compressed step's own ``compress_and_aggregate`` call (its
+    per-shard bf16 gradients g_j, residuals r_j, results ``ghat`` and new_r_j)
+    held to what does not depend on the basis V, for every sketched leaf:
+    ``mean_j(acc_j - new_r_j)`` with ``acc_j = g_j + r_j`` (``P V``, before
+    the cast to the gradients' dtype) has rank <= k, and ``ghat`` is it within
+    one bf16 rounding; the byte counts are checked against the plan by
+    ``check_training``."""
+    from repro_torch.tree import leaves
+
+    worst_identity, worst_rank = 0.0, 0.0
+    sketched = {shape for shape, _, _ in plan["sketched"]}
+    for g, r, nr, gh in zip(leaves(seen["grads"]), leaves(seen["residuals"]),
+                            leaves(seen["new_r"]), leaves(seen["ghat"])):
+        if tuple(g.shape[1:]) not in sketched:
+            continue
+        acc = g.float() + r
+        pv = (acc - nr).mean(0)
+        slack = BF16_ROUNDING * pv.abs() + KERNEL_RTOL * float(acc.abs().max())
+        worst_identity = max(worst_identity, float(((gh.float() - pv).abs() / slack).max()))
+        mat = pv.reshape(-1, pv.shape[-1]).double()
+        lam = torch.linalg.eigvalsh(mat.T @ mat).flip(0).clamp_min(0.0)
+        if float(lam[0]) > 0:
+            worst_rank = max(worst_rank, float((lam[ccfg.rank] / lam[0]).sqrt()))
+        del acc, pv, slack, mat
+    check(worst_identity <= 1.0,
+          f"training: ghat is {worst_identity:.3f} bf16 roundings from mean(acc - new_r)")
+    check(worst_rank <= TRAIN_RANK_TOL,
+          f"training: a sketched leaf of ghat has sigma_(k+1) / sigma_1 = {worst_rank:.3e} > "
+          f"{TRAIN_RANK_TOL}: rank above k = {ccfg.rank}")
+    return dict(ghat_vs_mean_acc_minus_new_r_over_tol=worst_identity, rank_ratio=worst_rank)
+
+
+def check_train_loss_on_cpu(torch, seed: int) -> dict:
+    """Qwen3-0.6B's width at TRAIN_CHECK_LAYERS layers in f32: ``LM.loss`` and
+    its gradients with respect to every leaf on the card against the same
+    computation on CPU copies, on one TRAIN_SEQ-token sequence: the loss
+    within LOSS_RTOL, each gradient leaf within GRAD_RTOL of its largest
+    entry."""
+    from repro_torch.models import LM
+    from repro_torch.models.weights import reference_params
+    from repro_torch.tree import flatten, leaves, tree_map
+
+    cfg = train_config(dtype="float32", n_layers=TRAIN_CHECK_LAYERS)
+    lm = LM(cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(seed + 11))
+    params = reference_params(cfg, lm.state_dict())
+    gen = torch.Generator(device=DEV).manual_seed(seed + 12)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), device=DEV, generator=gen)
+
+    def run(p, toks):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        loss = lm.loss({"tokens": toks}, params=live)
+        return loss.detach(), torch.autograd.grad(loss, leaves(live))
+
+    t0 = time.perf_counter()
+    loss, grads = run(params, tokens)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = run(tree_map(lambda t: t.cpu(), params), tokens.cpu())
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    check(loss_err <= LOSS_RTOL, f"training loss on the card vs the CPU: {loss_err:.3e} relative")
+    worst = {}
+    for (path, _), g, h in zip(flatten(params), grads, cpu_grads):
+        err, scale = _max_gap(g.cpu(), h)
+        worst["/".join(map(str, path))] = err / max(scale, 1e-30)
+    name = max(worst, key=worst.get)
+    check(worst[name] <= GRAD_RTOL,
+          f"training gradient {name} on the card vs the CPU: {worst[name]:.3e} of its largest")
+    return dict(layers=TRAIN_CHECK_LAYERS, loss=float(loss), loss_rel_err=loss_err,
+                worst_grad=name, worst_grad_rel_err=worst[name], card_s=card_s, cpu_s=cpu_s)
+
+
+def check_compression_on_cpu(torch, params, seed: int) -> dict:
+    """``compress_and_aggregate`` on the card against CPU copies, at the path's
+    leaf shapes: one leaf of each shape of ``params`` but the embedding
+    table's (151,936 rows of d = 1,024, which stream through the (4, 32,
+    1,024) shapes that wk, wo and w_down already give the kernels, and would
+    double the CPU's time), TRAIN_SHARDS shards' synthetic gradients a leaf (a shared rank-k
+    part whose scales run from 2 to 1, a clear gap at k, plus 1e-3 noise;
+    plain noise for the 1-D leaves), zero residuals.  ``ghat`` within
+    GRAD_RTOL of its largest entry, the residuals within GRAD_RTOL of the
+    leaf's largest accumulated gradient, the byte counts equal."""
+    from repro_torch.optim import FDCompressConfig, compress_and_aggregate, init_residuals
+    from repro_torch.tree import flatten, leaves, tree_map
+
+    picked, shapes = {}, set()
+    for path, leaf in flatten(params):
+        if path[0] != "embed" and tuple(leaf.shape) not in shapes:
+            shapes.add(tuple(leaf.shape))
+            picked["/".join(map(str, path))] = leaf
+    params = picked
+    ccfg, m = FDCompressConfig(), TRAIN_SHARDS
+    gen = torch.Generator(device=DEV).manual_seed(seed + 13)
+
+    def synthetic(p):
+        if p.ndim < 2:
+            return torch.randn((m,) + tuple(p.shape), device=DEV, generator=gen)
+        d = p.shape[-1]
+        rows = p.numel() // d
+        k = min(ccfg.rank, d)
+        v = torch.linalg.qr(torch.randn(d, k, device=DEV, generator=gen))[0].T
+        u = torch.randn(m, rows, k, device=DEV, generator=gen)
+        u *= torch.linspace(2.0, 1.0, k, device=DEV)
+        g = u @ v + 1e-3 * torch.randn(m, rows, d, device=DEV, generator=gen)
+        return g.reshape((m,) + tuple(p.shape))
+
+    grads = tree_map(synthetic, params)
+    res = init_residuals(params, m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ghat, new_r, stats = compress_and_aggregate(grads, res, ccfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = tree_map(lambda t: t.cpu(), (grads, res))
+    t0 = time.perf_counter()
+    cpu_ghat, cpu_r, cpu_stats = compress_and_aggregate(cpu[0], cpu[1], ccfg)
+    cpu_s = time.perf_counter() - t0
+    worst_g, worst_r = {}, {}
+    for (path, g), gh, ch, nr, cr in zip(flatten(grads), leaves(ghat), leaves(cpu_ghat),
+                                        leaves(new_r), leaves(cpu_r)):
+        name = "/".join(map(str, path))
+        err, scale = _max_gap(gh.cpu(), ch)
+        worst_g[name] = err / max(scale, 1e-30)
+        err, scale = _max_gap(nr.cpu(), cr)
+        worst_r[name] = err / max(scale, float(g.abs().max()), 1e-30)
+    gname, rname = max(worst_g, key=worst_g.get), max(worst_r, key=worst_r.get)
+    check(worst_g[gname] <= GRAD_RTOL,
+          f"compression on the card vs the CPU: ghat {gname} {worst_g[gname]:.3e}")
+    check(worst_r[rname] <= GRAD_RTOL,
+          f"compression on the card vs the CPU: residuals {rname} {worst_r[rname]:.3e}")
+    check(float(stats.full_bytes) == float(cpu_stats.full_bytes)
+          and float(stats.compressed_bytes) == float(cpu_stats.compressed_bytes),
+          f"compression bytes on the card {tuple(map(float, stats))} != on the CPU "
+          f"{tuple(map(float, cpu_stats))}")
+    return dict(worst_ghat=gname, worst_ghat_rel_err=worst_g[gname], worst_residual=rname,
+                worst_residual_rel_err=worst_r[rname], card_s=card_s, cpu_s=cpu_s)
+
+
+def check_training(torch, tr) -> dict:
+    """The steps' losses fall, the plain step launched no kernel, every
+    compressed step launched ``fd_gram`` and ``fd_project`` as the plan says,
+    its byte counts are the plan's, and the first step's compression met the
+    basis-free identities."""
+    plain, comp, plan = tr["plain"], tr["comp"], tr["plan"]
+    for name, run in (("plain", plain), ("compressed", comp)):
+        check(all(math.isfinite(x) for x in run["losses"] + [run["loss_after"]]),
+              f"training {name} losses are not finite: {run['losses']}")
+        check(run["loss_after"] < run["losses"][0] and run["losses"][-1] < run["losses"][0],
+              f"training {name} loss did not fall: {run['losses']} then {run['loss_after']}")
+    check(not any(plain["launches"].values()),
+          f"the plain train step launched kernels: {plain['launches']}")
+    want = dict.fromkeys(tr["launches"], 0)
+    want.update(fd_gram_batched=plan["fd_batched"], fd_project_batched=plan["fd_batched"],
+                fd_gram=plan["fd_single"], fd_project=plan["fd_single"])
+    for i, got in enumerate(comp["launches"]):
+        check(got == want, f"compressed step {i} launches {got} != the plan's {want}")
+    for m in comp["metrics"]:
+        check(m["comm_full_bytes"] == plan["full_bytes"]
+              and m["comm_compressed_bytes"] == plan["compressed_bytes"],
+              f"compressed step bytes {m} != the plan's {plan['full_bytes']} / "
+              f"{plan['compressed_bytes']}")
+    check(tr["identities"] is not None, "the first compressed step was not recorded")
+    return dict(identities=tr["identities"], ratio=comp["metrics"][-1]["comm_full_bytes"]
+                / comp["metrics"][-1]["comm_compressed_bytes"])
+
+
+def train_cases(torch, recorded: dict) -> list[dict]:
+    """``fd_gram`` and ``fd_project`` at the compressed step's shapes: the
+    shards' stacked sketches (TRAIN_SHARDS, 2l, d) and the merges (1, 2l,
+    d), for each sketched width d, on the inputs its first step gave them."""
+    from repro_torch.kernels import fd_ops, ref
+
+    cases = []
+    for (kernel, t, d), args in sorted(recorded.items()):
+        check(args is not None, f"the compressed step never launched {kernel} at T = {t}, d = {d}")
+        b = args[-1]
+        _, l, _ = b.shape
+        name = kernel if t == 1 else f"{kernel}_batched"
+        label = f"train {'merge' if t == 1 else 'sketch'}: (T={t}, L={l}, d={d})"
+        if kernel == "fd_gram":
+            cases.append(dict(
+                kernel=name, shape=label, pallas=PALLAS[name],
+                run=lambda b=b: fd_ops.fd_gram(b), plain=lambda b=b: ref.ref_fd_gram_batched(b),
+                library=lambda b=b: torch.bmm(b, b.mT), symmetric=True, on_path=True,
+                flops=2.0 * t * l * (l + 1) / 2 * d, nbytes=4.0 * (t * l * d + t * l * l)))
+        else:
+            w, u, _ = args
+            cases.append(dict(
+                kernel=name, shape=label, pallas=PALLAS[name],
+                run=lambda w=w, u=u, b=b: fd_ops.fd_project(w, u, b),
+                plain=lambda w=w, u=u, b=b: ref.ref_fd_project_batched(w, u, b),
+                library=lambda u=u, b=b: torch.bmm(u.mT, b), on_path=True,
+                flops=2.0 * t * l * l * d + t * l * d,
+                nbytes=4.0 * (t * l + t * l * l + 2 * t * l * d)))
+    return cases
+
+
+def time_train_checkpoint(torch, state) -> dict:
+    """Path 8's full-width train state through the checkpoint code that
+    ``launch.train`` uses: ``AsyncCheckpointer.save`` (the caller blocks for
+    the copies to host memory), its ``wait`` (compression, hashes and
+    writes on the background thread), then ``ckpt.restore`` onto the card.
+    Every restored leaf must equal the saved one bit for bit."""
+    import tempfile
+
+    from repro_torch import ckpt
+    from repro_torch.tree import leaves
+
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    with tempfile.TemporaryDirectory() as directory:
+        saver = ckpt.AsyncCheckpointer(directory)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(TRAIN_COMPRESSED_STEPS, state)
+        stall_s = time.perf_counter() - t0
+        saver.wait()
+        save_s = time.perf_counter() - t0
+        disk_bytes = sum(f.stat().st_size for f in Path(directory).rglob("*") if f.is_file())
+        codec = ckpt.read_manifest(directory, TRAIN_COMPRESSED_STEPS)["codec"]
+        t0 = time.perf_counter()
+        restored, _ = ckpt.restore(directory, TRAIN_COMPRESSED_STEPS, state, device=DEV)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(leaves(state), leaves(restored)))
+    check(same, "the restored full-width train state differs from the saved one")
+    del restored
+    torch.cuda.empty_cache()
+    return dict(state_bytes=state_bytes, disk_bytes=disk_bytes, codec=codec, stall_s=stall_s,
+                save_s=save_s, restore_s=restore_s, leaves=len(leaves(state)))
+
+
+def drive_train_entry(torch) -> dict:
+    """``repro_torch.launch.train.main`` on the card, ``--compress-grads
+    --shards TRAIN_SHARDS`` with a checkpoint directory: TRAIN_ENTRY_STEPS
+    steps, then ``--restore`` for one more.  At ``--reduced`` size: a full
+    Qwen3-0.6B train state with residuals for 4 shards is about 15.5 GB,
+    whose checkpoint takes minutes to write (``--train-ckpt`` times one);
+    the full-width path runs through the same step functions above."""
+    import io
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        argv = ["--arch", TRAIN_ARCH, "--reduced", "--compress-grads", "--shards",
+                str(TRAIN_SHARDS), "--global-batch", str(TRAIN_SHARDS * 2), "--seq-len", "64",
+                "--ckpt-dir", ckpt_dir, "--device", DEV]
+        outs = []
+        t0 = time.perf_counter()
+        for extra in (["--steps", str(TRAIN_ENTRY_STEPS)],
+                      ["--steps", str(TRAIN_ENTRY_STEPS + 1), "--restore"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                launch_train.main(argv + extra)
+            outs.append(buf.getvalue())
+        entry_s = time.perf_counter() - t0
+    losses = [float(x) for x in re.findall(r"loss=(\S+)", "".join(outs))]
+    savings = [float(x) for x in re.findall(r"comm_saving=([0-9.]+)x", "".join(outs))]
+    check(f"[train] restored step {TRAIN_ENTRY_STEPS}" in outs[1],
+          f"launch.train --restore did not restore step {TRAIN_ENTRY_STEPS}: {outs[1]!r}")
+    check(len(losses) >= 2 and all(math.isfinite(x) for x in losses),
+          f"launch.train losses {losses}")
+    check(len(savings) == len(losses) and all(s > 1.0 for s in savings),
+          f"launch.train comm_saving {savings}")
+    check(all("[train] done" in o for o in outs), "launch.train did not finish")
+    return dict(losses=losses, comm_saving=savings, seconds=entry_s,
+                lines=[line for o in outs for line in o.splitlines()])
+
+
 def main() -> int:
     """Build, check the kernels, drive and check both paths, report."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3347,6 +3827,8 @@ def main() -> int:
     ap.add_argument("--lev-steps", type=int, default=16,
                     help="pipeline super-steps (the first of the same stream)")
     ap.add_argument("--serve-prompt", type=int, default=4096, help="serving prompt length")
+    ap.add_argument("--train-ckpt", action="store_true",
+                    help="also save and restore path 8's full-width train state (minutes)")
     ap.add_argument("--out", type=str, default="", help="write the full report here as JSON")
     args = ap.parse_args()
 
@@ -3484,6 +3966,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_checks = check_serving_f32(torch, args.seed)
     serve_phase_s = time.perf_counter() - t_serve
+    torch.cuda.empty_cache()
+
+    # Path 8: training Qwen3-0.6B, plain and with FD-compressed gradients.
+    t_p8 = time.perf_counter()
+    tr = drive_training(torch, args.seed)
+    train_checks = check_training(torch, tr)
+    cases += run_kernel_cases(torch, train_cases(torch, tr["recorded"]))
+    train_ckpt = time_train_checkpoint(torch, tr["state"]) if args.train_ckpt else None
+    leaf_template = tr["state"].params
+    for key in ("lm", "state", "recorded", "batch"):
+        del tr[key]
+    torch.cuda.empty_cache()
+    train_checks["compression_vs_cpu"] = check_compression_on_cpu(torch, leaf_template, args.seed)
+    del leaf_template
+    torch.cuda.empty_cache()
+    train_checks["loss_vs_cpu"] = check_train_loss_on_cpu(torch, args.seed)
+    entry = drive_train_entry(torch)
+    p8_s = time.perf_counter() - t_p8
 
     n_rows = args.steps * M * ROWS_PER_SITE
     t, pt = run["timings"], prun["timings"]
@@ -3590,6 +4090,16 @@ def main() -> int:
         greedy_consistency=srun["greedy_consistency"], launches=srun["launches"],
         profile=serve_prof, f32_checks=f32_checks, phase_s=serve_phase_s,
     )
+    tcfg, prof8 = tr["cfg"], tr["profile"]
+    summary["path8"] = dict(
+        arch=TRAIN_ARCH, layers=tcfg.n_layers, d_model=tcfg.d_model, dtype=tcfg.dtype,
+        attn_impl=tcfg.attn_impl, remat=tcfg.remat, shards=TRAIN_SHARDS, rows=TRAIN_ROWS,
+        seq=TRAIN_SEQ, lr=TRAIN_LR, init_s=tr["init_s"], plain=tr["plain"],
+        compressed={k: v for k, v in tr["comp"].items()}, plan={k: v for k, v in tr["plan"].items()
+                                                              if k != "sketched"},
+        profile=prof8, checks=train_checks, entry=entry, launches=tr["launches"],
+        window_s=tr["window_s"], phase_s=p8_s, checkpoint=train_ckpt,
+    )
     kernels = []
     for name in ops.KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
@@ -3600,7 +4110,7 @@ def main() -> int:
             replaces=PALLAS.get(name) or NO_PALLAS[name],
             launches=(run["launches"][name] + prun["launches"][name] + pk["launches"][name]
                       + hq["launches"][name] + p6_launches[name] + p7_launches[name]
-                      + srun["launches"][name]
+                      + srun["launches"][name] + tr["launches"][name]
                       + (f32_checks["flash_launches"] if name == "flash_attention" else 0)),
             max_abs_err=max(c["max_abs_err"] for c in mine), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
@@ -3826,6 +4336,43 @@ def main() -> int:
           f"{CHECK_PROMPT} tokens: wall {f32_checks['prefill_wall_ms']:.2f} ms, device busy "
           f"{f32_checks['prefill_device_busy_ms']:.2f} ms, flash_attention "
           f"{f32_checks['prefill_flash_ms']:.3f} ms ({f32_checks['prefill_flash_share']:.1%})")
+    p8, plan, cv = summary["path8"], summary["path8"]["plan"], train_checks
+    cm, cl, ce = p8["compressed"], cv["loss_vs_cpu"], cv["compression_vs_cpu"]
+    print(f"path 8 training {TRAIN_ARCH} ({card}): {p8['layers']} layers, d_model "
+          f"{p8['d_model']}, {p8['dtype']}, attn {p8['attn_impl']}, remat {p8['remat']}; "
+          f"{TRAIN_ROWS} x {TRAIN_SEQ} tokens a step over m = {TRAIN_SHARDS} shards; plain step "
+          f"s {[round(x, 3) for x in p8['plain']['step_s']]}, losses "
+          f"{[round(x, 4) for x in p8['plain']['losses']]} then {p8['plain']['loss_after']:.4f}; "
+          f"compressed step s {[round(x, 2) for x in cm['step_s']]} (and one profiled), losses "
+          f"{[round(x, 4) for x in cm['losses']]} then {cm['loss_after']:.4f}; comm_saving "
+          f"{cm['metrics'][-1]['comm_full_bytes'] / cm['metrics'][-1]['comm_compressed_bytes']:.3f}"
+          f"x (the shapes' plan {plan['ratio']:.3f}x); window {p8['window_s']:.1f} s")
+    print(f"path 8 ({card}) launches a compressed step {json.dumps({k: v for k, v in cm['launches'][0].items() if v})}"
+          f" (plan: {plan['fd_batched']} batched and {plan['fd_single']} single of each FD "
+          f"kernel); profile of the last compressed step: wall {prof8['wall_ms']:.1f} ms, device busy "
+          f"{prof8['device_busy_ms']:.1f} ms ({prof8['device_busy_share']:.1%}), eigh "
+          f"{prof8['eigh_host_ms']:.1f} ms of host time ({prof8['eigh_host_share']:.1%}, "
+          f"{prof8['eigh_calls']} calls), fd_gram {prof8['shrink_kernel_device_ms']['fd_gram']:.1f} ms "
+          f"and fd_project {prof8['shrink_kernel_device_ms']['fd_project']:.1f} ms of device time; "
+          f"the profiler's own {prof8['profiler_s']:.1f} s")
+    print(f"path 8 checks ({card}): loss card vs CPU ({cl['layers']} layers, f32) {cl['loss_rel_err']:.3e} "
+          f"relative (limit {LOSS_RTOL}), worst gradient {cl['worst_grad']} "
+          f"{cl['worst_grad_rel_err']:.3e} (limit {GRAD_RTOL}); compression card vs CPU (a leaf "
+          f"of each shape but the embedding's): ghat {ce['worst_ghat']} {ce['worst_ghat_rel_err']:.3e}, "
+          f"residuals {ce['worst_residual']} {ce['worst_residual_rel_err']:.3e} (limit "
+          f"{GRAD_RTOL}), card {ce['card_s']:.1f} s, CPU {ce['cpu_s']:.1f} s; the first step's "
+          f"ghat {cv['identities']['ghat_vs_mean_acc_minus_new_r_over_tol']:.3f} of a bf16 "
+          f"rounding from mean(acc - new_r), whose sigma_(k+1) / sigma_1 is "
+          f"{cv['identities']['rank_ratio']:.3e} (limit {TRAIN_RANK_TOL})")
+    print(f"path 8 launch.train ({card}; --reduced, --compress-grads --shards {TRAIN_SHARDS}, restored "
+          f"step {TRAIN_ENTRY_STEPS}): losses {entry['losses']}, comm_saving "
+          f"{entry['comm_saving']}, {entry['seconds']:.1f} s; phase {p8_s:.1f} s")
+    if train_ckpt:
+        print(f"path 8 checkpoint of the full-width train state ({card}; {train_ckpt['leaves']} "
+              f"leaves, {train_ckpt['state_bytes'] / 1e9:.3f} GB, {train_ckpt['codec']}): the "
+              f"caller's stall {train_ckpt['stall_s']:.1f} s, written after "
+              f"{train_ckpt['save_s']:.1f} s ({train_ckpt['disk_bytes'] / 1e9:.3f} GB on disk), "
+              f"restored onto the card in {train_ckpt['restore_s']:.1f} s, bit for bit")
     print("summary: " + json.dumps(summary))
     print(card)
     print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"} for e in kernels]}))

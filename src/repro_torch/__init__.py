@@ -14,10 +14,14 @@ Core entry points:
                            the router, serving replicas and the
                            fault-injecting transport
     repro_torch.kernels  — CUDA kernels, their wrappers and plain oracles
-    repro_torch.models   — the decoder LM (serving path) and its configs
+    repro_torch.models   — the decoder LM and its configs
                            (``repro_torch.configs``)
     repro_torch.serve    — batched prefill + decode (``ServeEngine``);
                            ``python -m repro_torch.launch.serve`` drives it
+    repro_torch.optim    — AdamW, the LR schedule, FD-compressed gradients
+    repro_torch.train    — the plain and FD-compressed train steps;
+                           ``python -m repro_torch.launch.train`` drives them
+    repro_torch.data     — the deterministic token stream and generators
 
 Every entry point takes ``device=``; left as ``None`` it means the CUDA
 card, and raises when there is none.  Pass ``device="cpu"`` to run the

@@ -12,8 +12,9 @@ byte, so each package reads the other's checkpoints:
 Leaf names are the tree's path keys joined with ``__`` (``"root"`` for a
 bare leaf), in the order ``jax.tree_util`` flattens a pytree: dict keys
 sorted, NamedTuples by field, lists and tuples by index, ``None`` holding
-no leaf.  ``_flatten`` walks dicts, lists, tuples, NamedTuples and leaves
-(tensors, numpy arrays, scalars) in that order.
+no leaf (``repro_torch.tree`` walks trees in that order).  A bf16 leaf is
+stored as the reference stores one: its raw 2-byte words as ``.npy`` of
+dtype ``<V2``, with ``"bfloat16"`` as its dtype in the manifest.
 
 Guarantees:
   * atomic: written to ``.tmp-step_000123`` then ``os.rename``d — a crash
@@ -42,6 +43,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.tree import children as _children
+from repro_torch.tree import flatten as _flatten
+from repro_torch.tree import unflatten
 
 try:  # optional: fall back to stdlib zlib on minimal installs
     import zstandard
@@ -79,47 +83,6 @@ def _decompress(codec: str, data: bytes) -> bytes:
     raise ValueError(f"unknown checkpoint codec {codec!r}")
 
 
-def _is_namedtuple(node) -> bool:
-    return isinstance(node, tuple) and hasattr(node, "_fields")
-
-
-def _children(node):
-    """``(key, child)`` pairs of an inner node in flattening order, or None
-    for a leaf."""
-    if isinstance(node, dict):
-        return [(k, node[k]) for k in sorted(node)]
-    if _is_namedtuple(node):
-        return list(zip(node._fields, node))
-    if isinstance(node, (list, tuple)):
-        return list(enumerate(node))
-    return None
-
-
-def _flatten(tree, path: tuple = ()) -> list[tuple[tuple, object]]:
-    """``(path, leaf)`` pairs of ``tree`` in ``jax.tree_util`` order."""
-    if tree is None:
-        return []
-    children = _children(tree)
-    if children is None:
-        return [(path, tree)]
-    return [pair for key, child in children for pair in _flatten(child, path + (key,))]
-
-
-def _rebuild(template, leaves):
-    """``template``'s structure with its leaves taken in order from ``leaves``."""
-    if template is None:
-        return None
-    children = _children(template)
-    if children is None:
-        return next(leaves)
-    values = [_rebuild(child, leaves) for _, child in children]
-    if isinstance(template, dict):
-        return {key: v for (key, _), v in zip(children, values)}
-    if _is_namedtuple(template):
-        return type(template)(*values)
-    return type(template)(values)
-
-
 def _describe(tree) -> str:
     """A readable description of the tree's structure (``*`` for a leaf)."""
     if tree is None:
@@ -129,13 +92,13 @@ def _describe(tree) -> str:
         return "*"
     inner = ", ".join(
         f"{k!r}: {_describe(c)}" if isinstance(tree, dict)
-        else f"{k}={_describe(c)}" if _is_namedtuple(tree)
+        else f"{k}={_describe(c)}" if hasattr(tree, "_fields")
         else _describe(c)
         for k, c in children
     )
     if isinstance(tree, dict):
         return "{" + inner + "}"
-    if _is_namedtuple(tree):
+    if hasattr(tree, "_fields"):
         return f"{type(tree).__name__}({inner})"
     if isinstance(tree, list):
         return "[" + inner + "]"
@@ -146,10 +109,34 @@ def _leaf_paths(tree) -> list[tuple[str, object]]:
     return [("__".join(str(k) for k in path) or "root", leaf) for path, leaf in _flatten(tree)]
 
 
-def _to_host(leaf) -> np.ndarray:
+def _to_host(leaf) -> tuple[np.ndarray, str]:
+    """The leaf as a numpy array, and its dtype's name for the manifest (a
+    bf16 tensor as its int16 bit patterns, named ``bfloat16``)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:  # numpy has no bf16: its bits
+            return leaf.view(torch.int16).numpy(), "bfloat16"
+        leaf = leaf.numpy()
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _npy(arr: np.ndarray, dtype: str) -> bytes:
+    """The ``.npy`` bytes of a leaf.  A bf16 leaf's header names it ``<V2``,
+    as numpy writes ml_dtypes' bfloat16 (the same length as ``<i2``, so the
+    header's padding is unchanged)."""
+    buf = io.BytesIO()
+    np.save(buf, arr, allow_pickle=False)
+    raw = buf.getvalue()
+    if dtype == "bfloat16":
+        raw = raw.replace(b"'descr': '<i2'", b"'descr': '<V2'", 1)
+    return raw
+
+
+def _to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save(directory: str, step: int, tree, *, extra: dict | None = None) -> str:
@@ -166,17 +153,15 @@ def save(directory: str, step: int, tree, *, extra: dict | None = None) -> str:
         "leaves": {},
     }
     for name, leaf in _leaf_paths(tree):
-        arr = _to_host(leaf)
-        buf = io.BytesIO()
-        np.save(buf, arr, allow_pickle=False)
-        raw = buf.getvalue()
+        arr, dtype = _to_host(leaf)
+        raw = _npy(arr, dtype)
         fn = f"{name}.npy.{'zst' if codec == 'zstd' else codec}"
         with open(os.path.join(tmp, fn), "wb") as f:
             f.write(compress(raw))
         manifest["leaves"][name] = {
             "file": fn,
             "shape": list(arr.shape),
-            "dtype": str(arr.dtype),
+            "dtype": dtype,
             "sha256": hashlib.sha256(raw).hexdigest(),
         }
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
@@ -266,8 +251,8 @@ def restore(directory: str, step: int, template, *, device=None):
             raise ValueError(
                 f"leaf {name}: checkpoint shape {arr.shape} != template {tuple(np.shape(leaf))}"
             )
-        out.append(torch.from_numpy(arr).to(device))
-    return _rebuild(template, iter(out)), manifest["extra"]
+        out.append(_to_tensor(arr, meta["dtype"]).to(device))
+    return unflatten(template, out), manifest["extra"]
 
 
 class AsyncCheckpointer:
@@ -290,7 +275,7 @@ class AsyncCheckpointer:
         # Copies, so the caller may go on writing into its tensors.
         host = [leaf.detach().to("cpu", copy=True) if isinstance(leaf, torch.Tensor)
                 else np.array(leaf) for _, leaf in _flatten(tree)]
-        host_tree = _rebuild(tree, iter(host))
+        host_tree = unflatten(tree, host)
 
         def work():
             try:

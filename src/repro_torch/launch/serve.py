@@ -39,10 +39,10 @@ def main(argv: list[str] | None = None, clock: Callable[[], float] = time.time) 
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
     if args.ckpt_dir:
-        # The reference restores a training run's state; its template comes
-        # with the training stack.
-        raise NotImplementedError("--ckpt-dir restores a training run's state, which waits "
-                                  "for the training stack (ROADMAP item 12)")
+        # The reference restores a training run's state into the server;
+        # loading it into the serving engine is not ported yet.
+        raise NotImplementedError("--ckpt-dir restores a training run's state into the server, "
+                                  "which is not ported yet (ROADMAP item 12c)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -124,6 +124,26 @@ def test_each_package_reads_the_others_checkpoint(tmp_path, rng, writer):
         np.testing.assert_array_equal(subset[n], want[n])
 
 
+def test_bf16_leaves_are_written_as_the_reference_writes_them(tmp_path, rng):
+    """A bf16 leaf (a training run's bf16 weights): the reference saves
+    ml_dtypes' bfloat16 as raw 2-byte words with dtype ``bfloat16`` in the
+    manifest; the port writes the same bytes for a torch bf16 tensor and
+    restores either checkpoint to that tensor, bit for bit."""
+    w = jax.numpy.asarray(rng.normal(size=(4, 6)), jax.numpy.bfloat16)
+    tree = {"w": np.asarray(w), "n": np.arange(3, dtype=np.int32)}
+    port_tree = {"w": torch.from_numpy(np.asarray(w).view(np.int16).copy()).view(torch.bfloat16),
+                 "n": torch.arange(3, dtype=torch.int32)}
+    ref_dir, port_dir = str(tmp_path / "ref"), str(tmp_path / "port")
+    jckpt.save(ref_dir, 1, tree)
+    ckpt.save(port_dir, 1, port_tree)
+    assert ckpt.read_manifest(port_dir, 1)["leaves"] == jckpt.read_manifest(ref_dir, 1)["leaves"]
+    assert ckpt.read_manifest(port_dir, 1)["leaves"]["w"]["dtype"] == "bfloat16"
+    for src in (ref_dir, port_dir):
+        got, _ = ckpt.restore(src, 1, port_tree, device="cpu")
+        assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"], port_tree["w"])
+        assert torch.equal(got["n"], port_tree["n"])
+
+
 def test_sketch_store_save_load(tmp_path, rng):
     store = SketchStore(retain=2)
     for tenant, (l, d) in (("a/b", (4, 6)), ("c", (3, 6))):

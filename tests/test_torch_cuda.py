@@ -116,6 +116,11 @@ def test_cuda_quadform_matches_plain(t, l, n, d, misaligned):
     (2, 600, 1024, False),  # more tiles than one cluster holds
     (3, 64, 20, False),  # d < 32, on the TMA path
     (2, 50, 7, True),  # d < 32, 4-byte staging
+    # The compressed train step's local sketches: m = 4 shards, 2l = 32 rows,
+    # Qwen3-0.6B's gradient widths (d_model, the q heads, d_ff).
+    (4, 32, 1024, False),
+    (4, 32, 2048, False),
+    (4, 32, 3072, False),
 ])
 def test_cuda_fd_kernels_match_plain(kernel, t, l, d, misaligned):
     """``fd_gram`` and ``fd_project`` on the card against their plain versions

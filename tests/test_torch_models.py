@@ -231,12 +231,12 @@ def test_configs_match_reference_and_unported_kinds_raise(monkeypatch):
             j_reduced_config(j_get_config(name)))
     for name, what in (("mixtral-8x7b", "MoE"), ("recurrentgemma-2b", "rglru"),
                        ("mamba2-370m", "ssd")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP item 12"):
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP item 12b"):
             LM(reduced_config(get_config(name)), device="cpu")
     lm = LM(reduced_config(get_config("qwen3-0.6b")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
         lm(torch.zeros(1, 4, dtype=torch.long), vision_embeds=torch.zeros(1, 2, 128))
-    with pytest.raises(NotImplementedError, match="training stack.*ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="training run.*ROADMAP item 12c"):
         launch_serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
                            "--ckpt-dir", "ckpt"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
